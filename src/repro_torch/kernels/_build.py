@@ -1,0 +1,85 @@
+"""Build and load the port's CUDA kernels (nvcc -> .so with a C interface).
+
+Each ``csrc/<name>.cu`` is compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC
+
+into ``build/repro_torch_kernels/`` at the repository root and loaded with
+``ctypes``.  The library name carries a hash of the source, so an edited
+source rebuilds.  Sources come only from this package; nothing is built
+at import time.  Triton's JIT cache is pointed into the same build tree
+(``triton_cache/``) before Triton is first imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: seconds each build took in this process (source name -> seconds)
+build_seconds: dict[str, float] = {}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if needed and load it (cached per process)."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is not None:
+            return lib
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes()
+                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        so = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed for {src.name} (rc={proc.returncode}):\n"
+                    f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, so)
+            build_seconds[name] = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(so))
+        _LIBS[name] = lib
+        return lib
+
+
+def triton_cache_dir() -> pathlib.Path:
+    """Point Triton's JIT cache into the build tree (once, before the first
+    ``import triton``) and return it."""
+    path = BUILD_DIR / "triton_cache"
+    os.environ.setdefault("TRITON_CACHE_DIR", str(path))
+    return pathlib.Path(os.environ["TRITON_CACHE_DIR"])

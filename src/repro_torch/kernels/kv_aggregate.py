@@ -1,0 +1,168 @@
+"""The SwitchAgg FPE hash-combine engine on Hopper: CUDA C++ kernel wrapper.
+
+Port of the Pallas TPU kernel ``_fpe_kernel`` / ``fpe_aggregate_pallas``
+(``src/repro/kernels/kv_aggregate.py:62`` and ``:151``).  The kernel is
+``csrc/fpe_aggregate.cu``; its source note says how the TPU design (a
+VMEM table carried across a sequential grid) maps onto one thread block
+that walks the stream in order with the table in shared memory (or in
+global memory when it does not fit), and what bounds it: a dependent
+chain of one probe-and-update per element, not bandwidth.
+
+Semantics are bit-identical to the sequential scan ``core.kvagg._fpe_scan``
+whose plain form, :func:`fpe_scan_plain`, is the Python loop in
+``core.kvagg`` (the oracle the kernel is held against on the card).
+
+Dispatch rule (no fallbacks): a CPU tensor takes the plain scan; a CUDA
+tensor launches the kernel or raises.  ``launches`` counts kernel
+launches and nothing else.
+
+``exact_stream=False`` in :func:`fpe_aggregate_cuda` keeps the Pallas
+wrapper's fast-mode contract (DESIGN.md §8): the stream is pre-combined
+with ``kvagg.sorted_combine`` and the distinct keys stream through the
+kernel; the eviction stream stays ``[n]`` (slot d = the d-th sorted
+distinct key), unlike ``kvagg``'s ``[n + cap]`` fast path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import aggops
+from repro_torch.core import kvagg as _kvagg
+
+from . import _build
+
+EMPTY_KEY = -1
+
+#: op name -> the kernel's op code (count and mean are sums over their
+#: carried lanes)
+OP_CODES = {"sum": 0, "count": 0, "mean": 0, "max": 1, "min": 2,
+            "logsumexp": 3}
+#: value dtype -> the kernel's dtype code
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+MAX_LANES = 4
+
+#: kernel launches in this process (set to 0 to start a count)
+launches = 0
+
+fpe_scan_plain = _kvagg._fpe_scan_plain
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library("fpe_aggregate")
+    if lib.fpe_aggregate_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fpe_aggregate_launch.argtypes = [p, p, i, i, i, i, i, i,
+                                             p, p, p, p, p, p, p]
+        lib.fpe_aggregate_launch.restype = i
+        lib.fpe_table_in_shared.argtypes = [i, i, i, i]
+        lib.fpe_table_in_shared.restype = i
+    return lib
+
+
+def table_in_shared(n_buckets: int, ways: int, lanes: int,
+                    dtype: torch.dtype) -> bool:
+    """Whether the kernel keeps a table of this geometry in shared memory
+    (else global memory) on the current card."""
+    return bool(_lib().fpe_table_in_shared(n_buckets, ways, lanes,
+                                           DTYPE_CODES[dtype]))
+
+
+def _check(t: torch.Tensor, name: str, dev, dtype, shape) -> None:
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(keys, values, *, n_buckets, ways, op, table_keys, table_values):
+    global launches
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"the FPE kernel needs CUDA tensors, got {dev}")
+    if values.dim() != 2:
+        raise ValueError("values must be [n, lanes]")
+    n, lanes = values.shape
+    if values.dtype not in DTYPE_CODES:
+        raise ValueError(f"unsupported value dtype {values.dtype}")
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"lanes must be in [1, {MAX_LANES}], got {lanes}")
+    if op not in OP_CODES:
+        aggops.get(op)  # raises, listing the registered ops
+        raise ValueError(f"op {op!r} has no FPE kernel")
+    if op == "logsumexp" and not values.dtype.is_floating_point:
+        raise ValueError("logsumexp needs floating values")
+    cap = n_buckets * ways
+    _check(keys, "keys", dev, torch.int32, (n,))
+    _check(values, "values", dev, values.dtype, (n, lanes))
+    if (table_keys is None) != (table_values is None):
+        raise ValueError("pass both table_keys and table_values, or neither")
+    if table_keys is not None:
+        _check(table_keys, "table_keys", dev, torch.int32, (cap,))
+        _check(table_values, "table_values", dev, values.dtype, (cap, lanes))
+    out_tk = torch.empty((cap,), dtype=torch.int32, device=dev)
+    out_tv = torch.empty((cap, lanes), dtype=values.dtype, device=dev)
+    ek = torch.empty((n,), dtype=torch.int32, device=dev)
+    ev = torch.empty((n, lanes), dtype=values.dtype, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fpe_aggregate_launch(
+            keys.data_ptr(), values.data_ptr(), n, lanes, n_buckets, ways,
+            OP_CODES[op], DTYPE_CODES[values.dtype],
+            None if table_keys is None else table_keys.data_ptr(),
+            None if table_values is None else table_values.data_ptr(),
+            out_tk.data_ptr(), out_tv.data_ptr(), ek.data_ptr(),
+            ev.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"FPE kernel launch failed: cudaError {rc}")
+    launches += 1
+    return out_tk, out_tv, ek, ev
+
+
+def fpe_scan(keys, values, *, n_buckets: int, ways: int, op: str,
+             table_keys=None, table_values=None):
+    """One exact FPE scan over keys [n] / values [n, lanes], optionally
+    resumed from a table [cap] / [cap, lanes].  Returns (table_keys [cap],
+    table_values [cap, lanes], evict_keys [n], evict_values [n, lanes]).
+
+    CPU tensors take the plain loop; CUDA tensors launch the kernel.
+    """
+    if keys.device.type == "cpu":
+        return fpe_scan_plain(keys, values, n_buckets=n_buckets, ways=ways,
+                              op=op, table_keys=table_keys,
+                              table_values=table_values)
+    return _launch(keys, values, n_buckets=n_buckets, ways=ways, op=op,
+                   table_keys=table_keys, table_values=table_values)
+
+
+def fpe_aggregate_cuda(
+    keys: torch.Tensor,
+    values: torch.Tensor,
+    *,
+    capacity: int,
+    ways: int = 4,
+    op: str = "sum",
+    exact_stream: bool = True,
+):
+    """Run the FPE kernel over a KV stream — the ``fpe_aggregate_pallas``
+    contract.
+
+    Returns ``kvagg.FPEResult``: table [cap] / [cap, *lanes], eviction
+    stream [n] / [n, *lanes].  ``exact_stream=False`` pre-combines the
+    stream to distinct keys (``kvagg.sorted_combine``, fixed shape [n])
+    before the exact scan: the resident table equals ``kvagg``'s fast
+    path, the eviction stream stays [n].
+    """
+    if not exact_stream:
+        c = _kvagg.sorted_combine(keys, values, op=op)
+        keys, values = c.unique_keys, c.combined_values
+    return _kvagg.fpe_aggregate(keys, values, capacity=capacity, ways=ways,
+                                op=op, exact_stream=True)

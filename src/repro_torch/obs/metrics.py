@@ -1,0 +1,240 @@
+"""Typed counter/gauge/histogram registry with labeled series (DESIGN.md §11).
+
+Replaces the ad-hoc telemetry dicts scattered across the dataplane, the
+two sim engines, transport, the placement planner, and the compressed
+train step with one schema:
+
+* a **metric** is a dotted name (``subsystem.noun.metric``) with a fixed
+  kind — ``counter`` (monotonic, names end ``_total``), ``gauge`` (last
+  value wins; unit-suffixed ``_s`` / ``_bytes`` / ``_ratio``), or
+  ``histogram`` (count/sum/min/max of observations);
+* a **series** is one metric plus a label set (``job``, ``level``,
+  ``axis``, ``op``, ``engine``, ...).  Series are created on first use
+  and keyed by the sorted label items, so publisher call-site order
+  never forks a series.
+
+Both sim engines publish through the *same* code path (the unified
+report schema in the JAX package's ``net/schema.py``), which is what lets the tests
+assert node and vectorized runs emit bit-identical series — the parity
+contract extended to telemetry.
+
+Stdlib-only; importable from every layer without cycles.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import time
+from typing import Any, Callable, Iterator, Optional
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "get_registry",
+    "set_registry",
+    "scoped",
+    "instrument_step",
+    "InstrumentedStep",
+]
+
+
+class Counter:
+    """Monotonic accumulator."""
+
+    __slots__ = ("value",)
+    kind = "counter"
+
+    def __init__(self):
+        self.value = 0.0
+
+    def inc(self, v: float = 1.0) -> None:
+        self.value += v
+
+    def snapshot(self):
+        return self.value
+
+
+class Gauge:
+    """Last-write-wins value."""
+
+    __slots__ = ("value",)
+    kind = "gauge"
+
+    def __init__(self):
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+    def snapshot(self):
+        return self.value
+
+
+class Histogram:
+    """Streaming count/sum/min/max over observed values."""
+
+    __slots__ = ("count", "sum", "min", "max")
+    kind = "histogram"
+
+    def __init__(self):
+        self.count = 0
+        self.sum = 0.0
+        self.min = float("inf")
+        self.max = float("-inf")
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        self.count += 1
+        self.sum += v
+        if v < self.min:
+            self.min = v
+        if v > self.max:
+            self.max = v
+
+    def snapshot(self):
+        if not self.count:
+            return {"count": 0, "sum": 0.0, "min": 0.0, "max": 0.0,
+                    "mean": 0.0}
+        return {"count": self.count, "sum": self.sum, "min": self.min,
+                "max": self.max, "mean": self.sum / self.count}
+
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+
+
+class MetricsRegistry:
+    """Get-or-create store of labeled metric series."""
+
+    def __init__(self):
+        # (name, ((k, v), ...)) -> metric instance
+        self._series: dict = {}
+        self._kind: dict = {}
+
+    def _get(self, name: str, labels: dict, kind: str):
+        known = self._kind.get(name)
+        if known is None:
+            self._kind[name] = kind
+        elif known != kind:
+            raise ValueError(
+                f"metric {name!r} already registered as {known}, "
+                f"requested as {kind}")
+        key = (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
+        m = self._series.get(key)
+        if m is None:
+            m = self._series[key] = _KINDS[kind]()
+        return m
+
+    def counter(self, name: str, **labels) -> Counter:
+        return self._get(name, labels, "counter")
+
+    def gauge(self, name: str, **labels) -> Gauge:
+        return self._get(name, labels, "gauge")
+
+    def histogram(self, name: str, **labels) -> Histogram:
+        return self._get(name, labels, "histogram")
+
+    # -- reads -------------------------------------------------------------
+    def value(self, name: str, **labels):
+        """Snapshot of one series; KeyError if it was never published."""
+        key = (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
+        return self._series[key].snapshot()
+
+    def find(self, name: str) -> list:
+        """All series of a metric as (labels_dict, snapshot) pairs."""
+        out = []
+        for (n, lk), m in sorted(self._series.items()):
+            if n == name:
+                out.append((dict(lk), m.snapshot()))
+        return out
+
+    def collect(self) -> list:
+        """Stable-sorted dump of every series.
+
+        Each entry: ``{"name", "kind", "labels", "value"}``.  Sorted by
+        (name, labels) so two registries fed identical publishes compare
+        equal with ``==`` — the engine-parity tests rely on this.
+        """
+        out = []
+        for (name, lk), m in sorted(self._series.items()):
+            out.append({"name": name, "kind": m.kind, "labels": dict(lk),
+                        "value": m.snapshot()})
+        return out
+
+    def reset(self) -> None:
+        self._series.clear()
+        self._kind.clear()
+
+    def to_dict(self) -> dict:
+        return {"metrics": self.collect()}
+
+    def write(self, path) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f, indent=1)
+
+
+# -- process-wide default --------------------------------------------------
+
+_REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return _REGISTRY
+
+
+def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
+    global _REGISTRY
+    prev, _REGISTRY = _REGISTRY, registry
+    return prev
+
+
+@contextlib.contextmanager
+def scoped(registry: Optional[MetricsRegistry] = None
+           ) -> Iterator[MetricsRegistry]:
+    """Install a fresh (or given) registry for the with-block.
+
+    Tests and parity harnesses use this to collect one run's series in
+    isolation without resetting the process-wide registry.
+    """
+    r = MetricsRegistry() if registry is None else registry
+    prev = set_registry(r)
+    try:
+        yield r
+    finally:
+        set_registry(prev)
+
+
+class InstrumentedStep:
+    """Callable wrapper publishing per-call count + wall-time histogram.
+
+    Wraps a (possibly jitted) step function; attribute access is
+    forwarded so ``.lower(...)`` / ``.trace(...)`` on the underlying
+    ``jax.jit`` object keep working (dryrun lowers the wrapped step).
+    """
+
+    def __init__(self, fn: Callable, name: str = "train.step",
+                 labels: Optional[dict] = None):
+        self._fn = fn
+        self._name = name
+        self._labels = dict(labels or {})
+
+    def __call__(self, *a, **kw):
+        from repro_torch.obs.trace import get_tracer
+        reg = get_registry()
+        t0 = time.perf_counter()
+        with get_tracer().span(self._name, cat="train"):
+            out = self._fn(*a, **kw)
+        dt = time.perf_counter() - t0
+        reg.counter(self._name + ".calls_total", **self._labels).inc()
+        reg.histogram(self._name + ".wall_s", **self._labels).observe(dt)
+        return out
+
+    def __getattr__(self, item):
+        return getattr(self._fn, item)
+
+
+def instrument_step(fn: Callable, name: str = "train.step",
+                    labels: Optional[dict] = None) -> InstrumentedStep:
+    return InstrumentedStep(fn, name=name, labels=labels)

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-Needs one NVIDIA GPU (written for an H100).  It builds the port's two
-kernels from this checkout -- the FPE hash-combine engine with nvcc
-(``kernels/csrc/fpe_aggregate.cu``) and the per-row top-k with Triton
-(``kernels/topk_compress.py``) -- holds each against its plain torch
-version, then drives the slice's main path through the entry points a
-user calls:
+Needs one NVIDIA GPU (written for an H100).  It builds the port's three
+CUDA kernels from this checkout, one nvcc each, all at once -- the FPE
+hash-combine engine (``kernels/csrc/fpe_aggregate.cu``), the per-row
+top-k (``kernels/csrc/topk_rows.cu``) and the BPE's in-order segmented
+sum (``kernels/csrc/segment_sum.cu``) -- holds each against its plain
+torch version, then drives the slice's main path through the entry
+points a user calls:
 
   wordcount      the paper's MapReduce word count: 8 x 1 M Zipf-0.99
                  pairs through a 2-level ``run_cascade(backend="cuda")``;
@@ -18,7 +19,8 @@ user calls:
 
 Each phase prints one JSON line; any mismatch raises (non-zero exit, no
 result line).  The kernel launch counters are set to 0 just before each
-main-path phase and read just after it.  The line before the last is the
+main-path phase and read just after it; launches made to compare a kernel
+with its plain version are not counted.  The line before the last is the
 per-kernel summary ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -45,18 +47,16 @@ from repro_torch.core import aggops, compressor, dataplane, kvagg  # noqa: E402
 from repro_torch.core import reduction_model as rm  # noqa: E402
 from repro_torch.core.dataplane import CascadePlan, LevelSpec  # noqa: E402
 from repro_torch.kernels import _build, kv_aggregate, ops  # noqa: E402
-from repro_torch.kernels import topk_compress  # noqa: E402
+from repro_torch.kernels import segment_sum, topk_compress  # noqa: E402
 from repro_torch.net import wire  # noqa: E402
 
 EMPTY = kvagg.EMPTY_KEY
 #: H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-#: logsumexp's tolerance: the card's expf/log1pf are not the CPU's, so
-#: |kernel - plain| <= tol * max(1, |plain|).  f32: 1e-6.  bf16 combines
-#: in f32 and rounds once, so a last-bit f32 difference can round to the
-#: neighbouring bf16 value: one bf16 ulp, 2**-7.
-LSE_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-7}
+#: the kernels of the main path: name -> (wrapper module, source)
+KERNELS = {"fpe_aggregate": kv_aggregate, "topk_rows": topk_compress,
+           "segment_sum": segment_sum}
 
 
 class SmokeError(RuntimeError):
@@ -73,14 +73,13 @@ def emit(phase: str, **fields) -> None:
 
 
 def counted(fn):
-    """Run ``fn`` with both launch counters set to 0; return its result
+    """Run ``fn`` with every launch counter set to 0; return its result
     and the launches it made."""
-    kv_aggregate.launches = 0
-    topk_compress.launches = 0
+    for mod in KERNELS.values():
+        mod.launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {"fpe_aggregate": kv_aggregate.launches,
-                 "topk_rows": topk_compress.launches}
+    return out, {name: mod.launches for name, mod in KERNELS.items()}
 
 
 def cuda_ms(fn, iters: int = 10, warmup: bool = True) -> float:
@@ -133,6 +132,31 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class Build(threading.Thread):
+    """One nvcc for each CUDA source, all started together, in the
+    background: the plain scans of the FPE check run meanwhile."""
+
+    def __init__(self):
+        super().__init__(name="nvcc")
+        self.error: BaseException | None = None
+        self.t0 = time.perf_counter()
+
+    def run(self) -> None:
+        try:
+            _build.build_all(KERNELS)
+        except BaseException as e:  # re-raised by wait(), in the main thread
+            self.error = e
+
+    def wait(self) -> None:
+        t = time.perf_counter()
+        self.join()
+        if self.error is not None:
+            raise self.error
+        emit("build", build_s=dict(_build.build_seconds),
+             build_total_s=time.perf_counter() - self.t0,
+             waited_s=time.perf_counter() - t)
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SmokeError("torch.cuda.is_available() is False: chip_smoke.py "
@@ -143,35 +167,12 @@ def phase_device() -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-
-    # one nvcc for the CUDA source, started beside the Triton JIT
-    errors: list[BaseException] = []
-
-    def build_fpe():
-        try:
-            kv_aggregate._lib()
-        except BaseException as e:  # re-raised below, in the main thread
-            errors.append(e)
-
-    t0 = time.perf_counter()
-    th = threading.Thread(target=build_fpe)
-    th.start()
-    x = torch.randn((8, 4096), device="cuda")
-    topk_compress.topk_rows(x, k=41)
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
-    th.join()
-    if errors:
-        raise errors[0]
     info = {"name": torch.cuda.get_device_name(0),
             "nvidia_smi": smi,
             "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0]}
-    emit("device", **info,
-         fpe_so_build_s=_build.build_seconds.get("fpe_aggregate", 0.0),
-         triton_first_call_s=triton_s,
-         build_total_s=time.perf_counter() - t0)
+    emit("device", **info)
     return info
 
 
@@ -180,23 +181,16 @@ def phase_device() -> dict:
 # ---------------------------------------------------------------------------
 
 F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
-#: CUDA's default dynamic shared memory per block; a larger table needs
-#: the cudaFuncSetAttribute opt-in
-SMEM_DEFAULT = 48 * 1024
 FPE_SWEEP = (("sum", (F32, BF16, I32)), ("max", (F32, BF16, I32)),
              ("min", (F32, BF16, I32)), ("count", (I32,)),
              ("mean", (F32, BF16)), ("logsumexp", (F32, BF16)))
-#: (capacity, ways); 16384 x 4 is the main path's level table, past the
-#: 48 KB default shared-memory limit (the kernel's opt-in launch)
+#: (capacity, ways); ways <= 4 walk a bucket with one thread, 8 and 64
+#: with one warp; 16384 x 4 is the main path's level table
 FPE_GEOMETRIES = ((64, 1), (1024, 4), (4096, 8), (2048, 64), (16384, 4))
-
-
-def table_bytes(n_buckets: int, ways: int, lanes: int, dtype) -> int:
-    """The kernel's table size (fpe_aggregate.cu ``table_bytes``): keys
-    padded to 16 bytes, then the values."""
-    cap = n_buckets * ways
-    elem = 2 if dtype == BF16 else 4
-    return (cap * 4 + 15) // 16 * 16 + cap * lanes * elem
+#: streams past the one-launch path's SMALL_N take the partitioned path
+FPE_N = {"partitioned": 8192, "one_launch": 2048}
+ADVERSARIAL = ("one_key", "one_bucket_distinct", "all_distinct",
+               "all_pads", "empty", "single")
 
 
 def _fpe_stream(rng, n: int, variety: int, op: str, dtype, seed: int):
@@ -213,79 +207,105 @@ def _fpe_stream(rng, n: int, variety: int, op: str, dtype, seed: int):
     return torch.from_numpy(keys), vals.reshape(n, -1).contiguous()
 
 
-def _fpe_compare(label: str, op: str, got, want) -> float:
-    """Raise unless the kernel's (table, evictions) equal the plain scan's:
-    keys exactly, values bit for bit (logsumexp within LSE_TOL).  Returns
-    the largest absolute value difference."""
+def _adversarial(case: str, n: int, n_buckets: int, rng):
+    """Streams that stress the bucket walk: one key (a chain of n hits),
+    one bucket of distinct keys (a chain of n, an eviction per pair past
+    the row), all keys distinct, pads only, n = 0, n = 1."""
+    if case == "one_key":
+        keys = np.full(n, 4242, np.int32)
+    elif case == "one_bucket_distinct":
+        cand = np.arange(64 * n * n_buckets, dtype=np.int64)
+        hit = aggops.hash_key(torch.from_numpy(cand).to(torch.int32),
+                              n_buckets).numpy() == 1
+        keys = cand[hit][:n].astype(np.int32)
+    elif case == "all_distinct":
+        keys = rng.permutation(1 << 24)[:n].astype(np.int32)
+    elif case == "all_pads":
+        keys = np.full(n, EMPTY, np.int32)
+    elif case == "empty":
+        keys = np.zeros(0, np.int32)
+    else:
+        keys = np.array([9], np.int32)
+    vals = rng.standard_normal((keys.shape[0], 1)).astype(np.float32)
+    return torch.from_numpy(keys), torch.from_numpy(vals)
+
+
+def _fpe_compare(label: str, got, want) -> float:
+    """Raise unless the kernel's (table, evictions) equal the plain scan's
+    bit for bit.  Returns the largest absolute value difference (0)."""
     names = ("table_keys", "table_values", "evict_keys", "evict_values")
-    err = 0.0
     for name, g, w in zip(names, got, want):
         g = g.cpu()
         check(g.shape == w.shape and g.dtype == w.dtype,
               f"{label} {name}: {tuple(g.shape)} {g.dtype} vs "
               f"{tuple(w.shape)} {w.dtype}")
-        d = (g.double() - w.double()).abs()
-        err = max(err, float(d.max()) if d.numel() else 0.0)
-        if op == "logsumexp" and name.endswith("values"):
-            tol = LSE_TOL[w.dtype] * w.double().abs().clamp(min=1)
-            check(bool((d <= tol).all()), f"{label} {name} off by {err}")
-        else:
-            check(torch.equal(bits(g), bits(w)), f"{label} {name} differ")
-    return err
+        check(torch.equal(bits(g), bits(w)), f"{label} {name} differ")
+    return 0.0
 
 
-def phase_fpe_kernel_vs_plain(seed: int) -> float:
+def phase_fpe_kernel_vs_plain(seed: int, build: Build) -> float:
+    """Every case's plain scan first (while the kernels build), then each
+    kernel run held against it."""
     rng = np.random.default_rng(seed)
-    n, variety = 8192, 16384
-    cases, n_opt_in, max_err = 0, 0, 0.0
+    variety = 16384
+    counts = {"partitioned": 0, "one_launch": 0, "adversarial": 0}
+    cases = []
     t0 = time.perf_counter()
 
-    def run_case(op, dtype, capacity, ways, keys, vals, resume):
+    def add_case(op, dtype, capacity, ways, keys, vals, resume, path):
         ways, nb, cap = kvagg._fpe_geometry(capacity, ways)
         tk0 = tv0 = None
         if resume:  # a resident table from an earlier stream
-            rk, rv = _fpe_stream(rng, n // 2, variety, op, dtype, seed + 7)
+            rk, rv = _fpe_stream(rng, 4096, variety, op, dtype, seed + 7)
             tk0, tv0, _, _ = kv_aggregate.fpe_scan(rk, rv, n_buckets=nb,
                                                    ways=ways, op=op)
         want = kv_aggregate.fpe_scan(keys, vals, n_buckets=nb, ways=ways,
                                      op=op, table_keys=tk0,
                                      table_values=tv0)
+        label = (f"fpe {op} {str(dtype).split('.')[-1]} capacity={capacity} "
+                 f"ways={ways} resume={resume} n={keys.shape[0]}")
+        cases.append((label, path, op, nb, ways, keys, vals, tk0, tv0, want))
+
+    for op, dtypes in FPE_SWEEP:
+        for dtype in dtypes:
+            for path, n in FPE_N.items():
+                keys, vals = _fpe_stream(rng, n, variety, op, dtype, seed)
+                for capacity, ways in FPE_GEOMETRIES:
+                    # the one-launch path: resumed only (a streamed ingest)
+                    for resume in ((False, True) if path == "partitioned"
+                                   else (True,)):
+                        add_case(op, dtype, capacity, ways, keys, vals,
+                                 resume, path)
+    # a 65,536-slot table, as the 262,144-capacity word count's scale
+    keys, vals = _fpe_stream(rng, FPE_N["partitioned"], variety, "mean", F32,
+                             seed + 1)
+    for resume in (False, True):
+        add_case("mean", F32, 65536, 4, keys, vals, resume, "partitioned")
+    for case in ADVERSARIAL:
+        for n in (3000, 9000):
+            if case in ("empty", "single") and n == 9000:
+                continue
+            for capacity, ways in ((16, 1), (64, 4), (128, 8), (1024, 64)):
+                ways, nb, _ = kvagg._fpe_geometry(capacity, ways)
+                keys, vals = _adversarial(case, n, nb, rng)
+                add_case("sum", F32, capacity, ways, keys, vals, False,
+                         "adversarial")
+    plain_s = time.perf_counter() - t0
+
+    build.wait()
+    for label, path, op, nb, ways, keys, vals, tk0, tv0, want in cases:
         got = kv_aggregate.fpe_scan(
             keys.cuda(), vals.cuda(), n_buckets=nb, ways=ways, op=op,
             table_keys=None if tk0 is None else tk0.cuda(),
             table_values=None if tv0 is None else tv0.cuda())
         torch.cuda.synchronize()
-        label = (f"fpe {op} {str(dtype).split('.')[-1]} capacity={capacity} "
-                 f"ways={ways} resume={resume}")
-        return (_fpe_compare(label, op, got, want),
-                kv_aggregate.table_in_shared(nb, ways, vals.shape[1], dtype),
-                table_bytes(nb, ways, vals.shape[1], dtype) > SMEM_DEFAULT)
-
-    for op, dtypes in FPE_SWEEP:
-        for dtype in dtypes:
-            keys, vals = _fpe_stream(rng, n, variety, op, dtype, seed)
-            for capacity, ways in FPE_GEOMETRIES:
-                for resume in (False, True):
-                    err, smem, opt_in = run_case(op, dtype, capacity, ways,
-                                                 keys, vals, resume)
-                    check(smem, f"{capacity}x{ways} should fit shared memory")
-                    max_err = max(max_err, err)
-                    cases += 1
-                    n_opt_in += opt_in
-    n_smem = cases
-    check(n_opt_in > 0, "no case took the shared-memory opt-in launch")
-    # the global-memory table: 65536 x (4 + 2 x 4) bytes > 227 KB
-    keys, vals = _fpe_stream(rng, n, variety, "mean", F32, seed + 1)
-    for resume in (False, True):
-        err, smem, _ = run_case("mean", F32, 65536, 4, keys, vals, resume)
-        check(not smem, "the 65536-slot mean table should live in global "
-                        "memory")
-        max_err = max(max_err, err)
-        cases += 1
+        _fpe_compare(label, got, want)
+        counts[path] += 1
 
     # exact_stream=False through the "cuda" wrapper: the Pallas fast-mode
     # contract (pre-combine, [n] stream).  Integer-valued f32 values, so
-    # the pre-combine's sums do not depend on index_add_'s order.
+    # the pre-combine's sums are exact in any order.
+    n = FPE_N["partitioned"]
     keys = torch.from_numpy(rm.zipf_keys(n, variety, seed=seed + 2)
                             .astype(np.int32)).cuda()
     vals = torch.from_numpy(rng.integers(-8, 8, n).astype(np.float32)).cuda()
@@ -304,16 +324,14 @@ def phase_fpe_kernel_vs_plain(seed: int) -> float:
           and torch.equal(grouped.combined_values[:int(grouped.n_unique)],
                           direct.combined_values[:int(direct.n_unique)]),
           "fast-mode grouped totals differ from the input's")
-    cases += 1
-    emit("fpe_kernel_vs_plain", cases=cases, shared_memory_cases=n_smem,
-         opt_in_shared_memory_cases=n_opt_in, global_memory_cases=2, n=n,
-         key_variety=variety,
+    counts["partitioned"] += 1
+    emit("fpe_kernel_vs_plain", cases=sum(counts.values()),
+         cases_by_path=counts, n=FPE_N, key_variety=variety,
          geometries=[list(g) for g in FPE_GEOMETRIES] + [[65536, 4]],
-         max_abs_err=max_err,
-         logsumexp_tol={"float32": "rtol 1e-6, atol 1e-6",
-                        "bfloat16": "one bf16 ulp (2**-7 relative)"},
-         others="bit-identical", seconds=time.perf_counter() - t0)
-    return max_err
+         adversarial=list(ADVERSARIAL), max_abs_err=0.0,
+         compared="bit for bit, every op (logsumexp included)",
+         plain_seconds=plain_s, seconds=time.perf_counter() - t0)
+    return 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +345,16 @@ def phase_topk_kernel_vs_plain(seed: int) -> dict:
     ties[1] = 1.0
     ties[2, 5] = -2.0
     ties[2, 9] = 2.0
+    # NaN ranks above +inf (ties to the lower column), -0.0 equals 0
+    special = torch.randn((6, 4096), generator=g, device="cuda")
+    special[0, [7, 100, 3000]] = float("nan")
+    special[0, [5, 2000]] = float("inf")
+    special[0, 6] = -float("inf")
+    special[1, :] = 0.0
+    special[1, 1::2] = -0.0
+    special[2, :] = -3.0  # all magnitudes equal
+    special[3, :] = float("nan")
+    special[4, 10::40] = float("inf")
     cases = [
         ("gradient", torch.randn((6144, 4096), generator=g, device="cuda"),
          41),
@@ -334,6 +362,11 @@ def phase_topk_kernel_vs_plain(seed: int) -> dict:
         ("ties_and_zeros", ties, 5),
         ("bf16", torch.randn((64, 4096), generator=g, device="cuda")
          .to(torch.bfloat16), 41),
+        ("nan_inf_negzero", special, 41),
+        ("nan_inf_negzero_bf16", special.to(torch.bfloat16), 41),
+        ("k_equals_cols", torch.randn((9, 96), generator=g, device="cuda"),
+         96),
+        ("wide_k", torch.randn((7, 3000), generator=g, device="cuda"), 300),
     ]
     out, err = {}, 0.0
     for name, x, k in cases:
@@ -342,7 +375,8 @@ def phase_topk_kernel_vs_plain(seed: int) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(i, pi), f"top-k {name}: indices differ")
         check(torch.equal(bits(v), bits(pv)), f"top-k {name}: values differ")
-        err = max(err, float((v.double() - pv.double()).abs().max()))
+        d = (v.double() - pv.double()).abs()
+        err = max(err, float(torch.nan_to_num(d, nan=0.0).max()))
         out[name] = {"shape": list(x.shape), "k": k,
                      "dtype": str(x.dtype).split(".")[-1]}
     x, k = cases[0][1], cases[0][2]
@@ -352,8 +386,8 @@ def phase_topk_kernel_vs_plain(seed: int) -> dict:
     library = cuda_ms(lambda: torch.topk(x.abs(), k, dim=1), iters=20)
     b_ms, b_by = bound(rows * cols * 4 + rows * k * 8, rows * cols)
     emit("topk_kernel_vs_plain", cases=out, max_abs_err=err,
-         timed_shape=[rows,
-         cols], k=k, kernel_ms=kernel, plain_ms=plain, library_ms=library,
+         timed_shape=[rows, cols], k=k, kernel_ms=kernel, plain_ms=plain,
+         library_ms=library,
          library_call="torch.topk(x.abs(), k, dim=1)", bound_ms=b_ms,
          bound_by=b_by)
     return {"ms": kernel, "plain_ms": plain, "library_ms": library,
@@ -386,7 +420,51 @@ def _levels(res, plan, data_amount, key_variety) -> list:
     return rep
 
 
-def phase_wordcount(seed: int, launches: dict) -> dict:
+def chain_pairs(keys: torch.Tensor, n_buckets: int) -> int:
+    """The longest bucket chain of a stream: the most real pairs that
+    hash to one bucket (what bounds the FPE kernel's walk)."""
+    real = keys[keys != EMPTY]
+    if not real.numel():
+        return 0
+    return int(torch.bincount(aggops.hash_key(real, n_buckets).long(),
+                              minlength=n_buckets).max())
+
+
+def bpe_segment_sum(ek: torch.Tensor, ev: torch.Tensor) -> dict:
+    """The segment-sum kernel on the BPE's input at the main path's shape
+    (level 0's eviction stream, grouped as ``kvagg._group_reduce`` groups
+    it), held against its plain version bit for bit, then timed."""
+    n = ek.shape[0]
+    k_s, perm = torch.sort(ek, stable=True)
+    seg = torch.where(k_s == EMPTY, -1, torch.searchsorted(k_s, k_s))
+    vals = ev[perm].contiguous()
+    got = segment_sum.segment_sum(vals, seg, n, ids_grouped=True)
+    segc, valc = seg.cpu(), vals.cpu()
+    t0 = time.perf_counter()
+    want = segment_sum.segment_sum_plain(valc, segc, n)
+    plain = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(bits(got.cpu()), bits(want)),
+          "segment sum differs from its plain version on the BPE's input")
+    kernel = cuda_ms(lambda: segment_sum.segment_sum(vals, seg, n,
+                                                     ids_grouped=True))
+    lib_ids = torch.where(seg < 0, n, seg)  # pads into a spare segment
+    library = cuda_ms(lambda: torch.zeros(
+        (n + 1,) + tuple(vals.shape[1:]), device="cuda").index_add_(
+            0, lib_ids, vals))
+    real = int((seg >= 0).sum())
+    # ids and values read once, the sums written once; one add a real pair
+    b_ms, b_by = bound(n * 8 + n * vals[0].numel() * 4 * 2, real)
+    longest = int(torch.unique_consecutive(seg[seg >= 0],
+                                           return_counts=True)[1].max())
+    return {"ms": kernel, "plain_ms": plain, "library_ms": library,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": 0.0,
+            "plain_runs_on": "cpu",
+            "library_call": "index_add_ (atomics, no fixed order)",
+            "shape": f"level-0 word-count eviction stream, {n} slots, "
+                     f"{real} real, longest run {longest}"}
+
+
+def phase_wordcount(seed: int, launches: dict) -> tuple[dict, dict]:
     mappers, per_mapper, variety = 8, 1 << 20, 1 << 20
     n = mappers * per_mapper
     keys = torch.from_numpy(
@@ -408,34 +486,38 @@ def phase_wordcount(seed: int, launches: dict) -> dict:
         got[res.keys[real].long()] = res.values[real]
         check(torch.equal(got, want),
               f"word-count root differs from bincount at capacity {capacity}")
-        nb = capacity // 4
         emit("wordcount", pairs=n, mappers=mappers, key_variety=variety,
              skew=0.99, capacity=capacity, ways=4,
-             table_in_shared_memory=kv_aggregate.table_in_shared(
-                 nb, 4, 1, torch.float32),
+             chain_pairs=chain_pairs(keys, capacity // 4),
              levels=_levels(res, plan, n, variety),
              end_to_end_reduction=float(dataplane.end_to_end_reduction(res)),
              root_equals_bincount=True, wall_ms=wall,
              pairs_per_s=n / (wall / 1e3), launches=used)
 
     # where the time goes at capacity 16384, on the card's clock: each
-    # level, the FPE kernel alone on that level's input, the root combine
+    # level, the FPE kernel alone on that level's input (its partition
+    # included, and alone), the root combine
     plan = two_level(16384)
     k, v, split = keys, ones, []
     for i, spec in enumerate(plan.levels):
-        _, fpe_ms = timed(kv_aggregate.fpe_aggregate_cuda, k, v,
-                          capacity=spec.capacity, ways=spec.ways)
+        nb = spec.capacity // spec.ways
+        _, part_ms = timed(kv_aggregate.partition, k, nb)
+        fpe, fpe_ms = timed(kv_aggregate.fpe_aggregate_cuda, k, v,
+                            capacity=spec.capacity, ways=spec.ways)
+        if i == 0:
+            bpe = bpe_segment_sum(fpe.evict_keys, fpe.evict_values)
         slots = int(k.shape[0])
+        chain = chain_pairs(k, nb)
         (k, v, _), level_ms = timed(dataplane.run_level, k, v, spec, "sum",
                                     backend="cuda")
         split.append({"level": i, "input_slots": slots, "level_ms": level_ms,
-                      "fpe_kernel_ms": fpe_ms})
+                      "fpe_kernel_ms": fpe_ms, "partition_ms": part_ms,
+                      "chain_pairs": chain})
     _, root_ms = timed(kvagg.sorted_combine, k, v)
     full = split[0]["fpe_kernel_ms"]
 
-    # the kernel against its plain scan at the main path's geometry (a
-    # 128 KB table, the opt-in launch), on the first 2**17 pairs: held
-    # bit for bit, then timed
+    # the kernel against its plain scan at the main path's geometry, on
+    # the first 2**17 pairs: held bit for bit, then timed
     vals = ones[:, None]
     m = 1 << 17
     kp, vp = keys[:m].contiguous(), vals[:m].contiguous()
@@ -446,7 +528,7 @@ def phase_wordcount(seed: int, launches: dict) -> dict:
     got = kv_aggregate.fpe_scan(kp, vp, n_buckets=4096, ways=4, op="sum")
     torch.cuda.synchronize()
     err = _fpe_compare(f"fpe word count, first {m} pairs, capacity=16384 "
-                       "ways=4", "sum", got, want)
+                       "ways=4", got, want)
     n_evict = int((want[2] != EMPTY).sum())
     check(n_evict > 0, "the word-count prefix evicted nothing")
     kernel = cuda_ms(lambda: kv_aggregate.fpe_scan(
@@ -458,16 +540,20 @@ def phase_wordcount(seed: int, launches: dict) -> dict:
 
     b_ms, b_by = fpe_bound(m)
     b_full, _ = fpe_bound(n)
+    chain = chain_pairs(kp, 4096)
     emit("fpe_timing", levels=split, root_combine_ms=root_ms, n_full=n,
-         kernel_ms_full=full, bound_ms_full=b_full, n=m, kernel_ms=kernel,
-         plain_ms=plain, bound_ms=b_ms, bound_by=b_by, plain_runs_on="cpu",
-         evictions=n_evict, max_abs_err=err, equals_plain_scan=True)
+         kernel_ms_full=full, bound_ms_full=b_full,
+         chain_pairs_full=split[0]["chain_pairs"], n=m, kernel_ms=kernel,
+         chain_pairs=chain, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+         bound_by=b_by, plain_runs_on="cpu", evictions=n_evict, max_abs_err=err,
+         equals_plain_scan=True, bpe_segment_sum=bpe)
     return {"ms": kernel, "plain_ms": plain, "library_ms": None,
             "max_abs_err": err,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "chain_pairs": chain,
             "shape": f"first {m} pairs of the word-count stream, "
                      "capacity 16384, ways 4, f32",
-            "ms_full": full, "bound_ms_full": b_full, "n_full": n}
+            "ms_full": full, "bound_ms_full": b_full, "n_full": n,
+            "chain_pairs_full": split[0]["chain_pairs"]}, bpe
 
 
 def phase_grad_exchange(seed: int, launches: dict) -> None:
@@ -513,14 +599,29 @@ def phase_grad_exchange(seed: int, launches: dict) -> None:
         plain_keys.append(pk)
         plain_vals.append(pv.reshape(-1))
     pk, pv = torch.cat(plain_keys), torch.cat(plain_vals)
-    want = torch.zeros((size,), device="cuda").index_add_(0, pk.long(), pv)
+    # the plain path adds each key's values in worker order, the cascade
+    # in its own grouping (FPE hits, then BPE partials, level by level):
+    # f32 association, hence the tolerance.  No sum on the card adds in
+    # an unfixed order, so the card path is deterministic, and on a slice
+    # it equals the same cascade on the CPU bit for bit.
+    want = segment_sum.segment_sum_plain(pv.cpu(), pk.cpu(), size).cuda()
     real = res.keys != EMPTY
     check(torch.equal(torch.sort(res.keys[real]).values, torch.unique(pk)),
           "root key set differs from the workers' keys")
     check(int(res.n_in) == pk.shape[0], "cascade input count differs")
-    # BPE index_add_ on the card sums in no fixed order
     check(torch.allclose(dense, want, rtol=1e-5, atol=1e-6),
           "decompressed gradient sum differs from the plain path")
+    _, res2, dense2 = drive()
+    check(torch.equal(res2.keys, res.keys) and torch.equal(dense2, dense),
+          "the gradient exchange is not deterministic on the card")
+    sl = torch.cat([o[0][:64 * k] for o in outs]), torch.cat(
+        [o[1][:64 * k] for o in outs])
+    on_card = dataplane.run_cascade(*sl, plan, backend="cuda")
+    on_cpu = dataplane.run_cascade(sl[0].cpu(), sl[1].cpu(), plan,
+                                   backend="cuda")
+    check(torch.equal(on_card.keys.cpu(), on_cpu.keys)
+          and torch.equal(on_card.values.cpu(), on_cpu.values),
+          "the cascade on the card differs from the CPU's on a slice")
     emit("grad_exchange", workers=workers, grad_shape=[d_ff, d_model],
          chunk=chunk, k=k, pairs=int(pk.shape[0]),
          distinct_keys=int(real.sum()),
@@ -528,7 +629,10 @@ def phase_grad_exchange(seed: int, launches: dict) -> None:
              (d_ff, d_model), rows * k),
          levels=_levels(res, plan, int(pk.shape[0]), size),
          max_abs_err=float((dense - want).abs().max()),
-         tolerance="rtol 1e-5, atol 1e-6", wall_ms=wall, launches=used)
+         tolerance="rtol 1e-5, atol 1e-6 against the flat plain sum "
+                   "(association)", deterministic=True,
+         slice_pairs=int(sl[0].shape[0]), slice_equals_cpu_cascade=True,
+         wall_ms=wall, launches=used)
 
 
 def phase_stream(seed: int, launches: dict) -> None:
@@ -565,10 +669,15 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     info = phase_device()
-    fpe_err = phase_fpe_kernel_vs_plain(args.seed)
+    build = Build()
+    build.start()
+    try:
+        fpe_err = phase_fpe_kernel_vs_plain(args.seed, build)
+    finally:
+        build.join()  # no nvcc outlives the script, whatever failed
     topk = phase_topk_kernel_vs_plain(args.seed)
-    launches = {"fpe_aggregate": 0, "topk_rows": 0}
-    fpe = phase_wordcount(args.seed, launches)
+    launches = {name: 0 for name in KERNELS}
+    fpe, bpe = phase_wordcount(args.seed, launches)
     phase_grad_exchange(args.seed, launches)
     phase_stream(args.seed, launches)
     for name, c in launches.items():
@@ -579,12 +688,18 @@ def main() -> None:
                replaces="src/repro/kernels/kv_aggregate.py:62",
                launches=launches["fpe_aggregate"],
                max_abs_err=max(fpe_err, fpe["max_abs_err"]))
-    topk.update(name="topk_rows", route="triton",
-                source="src/repro_torch/kernels/topk_compress.py",
+    topk.update(name="topk_rows", route="cuda",
+                source="src/repro_torch/kernels/csrc/topk_rows.cu",
                 replaces="src/repro/kernels/topk_compress.py:29",
                 launches=launches["topk_rows"])
+    # no Pallas kernel: the BPE's segment_sum is an XLA op in the JAX
+    # package (its call in kvagg._group_reduce)
+    bpe.update(name="segment_sum", route="cuda",
+               source="src/repro_torch/kernels/csrc/segment_sum.cu",
+               replaces="src/repro/core/kvagg.py:209",
+               launches=launches["segment_sum"])
     print(info["nvidia_smi"], flush=True)
-    print(json.dumps({"kernels": [fpe, topk]}), flush=True)
+    print(json.dumps({"kernels": [fpe, topk, bpe]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
         flush=True)

@@ -18,9 +18,14 @@ An :class:`AggOp` carries:
   * ``lanes``             — carried value lanes (``mean`` carries 2).
   * ``prepare(values)``   — user values -> carried representation.
   * ``finalize(values)``  — carried representation -> user result.
-  * ``segment_reduce``    — the bulk (BPE) form of ``combine``:
-                            ``index_add_`` for sums, ``scatter_reduce_``
-                            with ``amax``/``amin`` for max/min.
+  * ``segment_reduce``    — the bulk (BPE) form of ``combine``: sums in
+                            ascending index order (``index_add_`` on the
+                            CPU, the in-order segmented-sum kernel on a
+                            card), ``scatter_reduce_`` with ``amax``/
+                            ``amin`` for max/min.  Ids outside
+                            [0, num_segments) are dropped, as JAX drops
+                            them; ``ids_grouped=True`` says each id's
+                            entries are one contiguous run.
 
 Associativity + commutativity of ``combine`` is the contract every op
 honors — it is what makes multi-level cascades exact.
@@ -32,6 +37,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from repro_torch.kernels import segment_sum as _segsum
 
 # ---------------------------------------------------------------------------
 # Shared key hash.
@@ -93,32 +100,33 @@ def _segment_init(shape, dtype, device, kind: str) -> torch.Tensor:
     return torch.full(shape, fill, dtype=dtype, device=device)
 
 
-def _segment_sum(values, segment_ids, num_segments):
-    """``index_add_`` one lane at a time: on the CPU the 1-D form adds in
-    index order with one rounding per add, as ``jax.ops.segment_sum``
-    does, while the 2-D form of a bf16 tensor does not."""
-    seg = segment_ids.to(torch.int64)
-    if values.dim() == 1:
-        out = torch.zeros((num_segments,), dtype=values.dtype,
-                          device=values.device)
-        return out.index_add_(0, seg, values)
-    flat = values.reshape(values.shape[0], -1)
-    cols = [_segment_sum(flat[:, l].contiguous(), seg, num_segments)
-            for l in range(flat.shape[1])]
-    return torch.stack(cols, dim=-1).reshape(
-        (num_segments,) + tuple(values.shape[1:]))
+def _segment_sum(values, segment_ids, num_segments, *, ids_grouped=False):
+    """Segment sum that adds each segment's values in ascending index
+    order, one rounding per add, as ``jax.ops.segment_sum`` does on the
+    CPU: ``index_add_`` lane by lane on a CPU tensor (the 1-D form adds in
+    index order; the 2-D form of a bf16 tensor does not), the in-order
+    segmented-sum kernel on a CUDA tensor, where ``index_add_`` would add
+    with atomics in no fixed order (``kernels.segment_sum``).
+    """
+    return _segsum.segment_sum(values, segment_ids, num_segments,
+                               ids_grouped=ids_grouped)
 
 
 def _segment_extreme(kind: str):
     reduce = "amax" if kind == "max" else "amin"
 
-    def seg(values, segment_ids, num_segments):
-        shape = (num_segments,) + tuple(values.shape[1:])
+    def seg(values, segment_ids, num_segments, *, ids_grouped=False):
+        """Ids outside [0, num_segments) are dropped (reduced into a spare
+        segment past the last).  max and min do not depend on the order:
+        ``ids_grouped`` is unused."""
+        shape = (num_segments + 1,) + tuple(values.shape[1:])
         out = _segment_init(shape, values.dtype, values.device, kind)
-        idx = segment_ids.to(torch.int64).reshape(
-            (-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+        ids = segment_ids.to(torch.int64)
+        ids = torch.where((ids >= 0) & (ids < num_segments), ids,
+                          num_segments)
+        idx = ids.reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
         return out.scatter_reduce_(0, idx, values, reduce,
-                                   include_self=False)
+                                   include_self=False)[:num_segments]
 
     return seg
 
@@ -134,7 +142,8 @@ class AggOp:
     name: str
     combine: Callable  # (a, b) -> merged, elementwise per carried lane
     identity: Callable  # (dtype, device=None) -> 0-d neutral element
-    segment_reduce: Callable  # (values, segment_ids, num_segments) -> [S,...]
+    # (values, segment_ids, num_segments, *, ids_grouped=False) -> [S, ...]
+    segment_reduce: Callable
     lanes: int = 1
     prepare: Callable | None = None  # user values -> carried values
     finalize: Callable | None = None  # carried values -> user values
@@ -185,14 +194,54 @@ def names() -> tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _segment_logsumexp(values, segment_ids, num_segments):
+def _f32_transcendental(fn):
+    """``fn`` in the value dtype, computed in f64 and rounded to f32 first
+    (bf16 then rounds once more, as a bf16 op computed in f32 does).
+
+    The f64 result is within one f64 ulp of exact on the CPU and on the
+    card, so its f32 rounding is the correctly rounded f32 value on both:
+    the FPE kernel computes the same and agrees with this bit for bit, and
+    the BPE's logsumexp gives the same bits on either device.
+    """
+    def op(x):
+        if x.dtype == torch.float64:
+            return fn(x)
+        return fn(x.double()).float().to(x.dtype)
+    return op
+
+
+_exp = _f32_transcendental(torch.exp)
+_log1p = _f32_transcendental(torch.log1p)
+_log = _f32_transcendental(torch.log)
+
+
+def _segment_logsumexp(values, segment_ids, num_segments, *,
+                       ids_grouped=False):
     """Numerically stable segmented logsumexp (two-pass max-shift)."""
     seg = segment_ids.to(torch.int64)
     m = _segment_max(values, seg, num_segments)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    s = _segment_sum(torch.exp(values - m_safe[seg]), seg, num_segments)
-    out = m_safe + torch.log(s)
+    s = _segment_sum(_exp(values - m_safe[seg]), seg, num_segments,
+                     ids_grouped=ids_grouped)
+    out = m_safe + _log(s)
     return torch.where(s > 0, out, torch.full_like(out, float("-inf")))
+
+
+def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.logaddexp`` op by op, every op rounding to the value dtype:
+    ``max(a, b) + log1p(exp(-|a - b|))``, or ``a + b`` where ``a - b`` is
+    NaN (a NaN input, or infinities of the same sign).
+
+    ``torch.logaddexp`` instead computes a bf16 input in f32 and rounds
+    once.  The one remaining difference from the JAX package is the f32
+    exp and log1p (XLA's approximations vs correctly rounded ones here).
+    ``kernels/csrc/fpe_aggregate.cu`` (``combine<kLogSumExp>``) repeats
+    these steps.
+    """
+    amax = torch.maximum(a, b)
+    delta = a - b
+    out = amax + _log1p(_exp(-delta.abs()))
+    return torch.where(torch.isnan(delta), a + b, out)
 
 
 def _mean_prepare(values: torch.Tensor) -> torch.Tensor:
@@ -256,7 +305,7 @@ MEAN = register(AggOp(
 
 LOGSUMEXP = register(AggOp(
     name="logsumexp",
-    combine=torch.logaddexp,
+    combine=logaddexp,
     # -inf IS the logaddexp identity; integer inputs are lifted to f32 by
     # prepare, so no iinfo case arises
     identity=_const(lambda dtype: float("-inf")),

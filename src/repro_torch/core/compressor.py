@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import aggops
 
 
 class CompressedGrad(NamedTuple):
@@ -62,14 +63,14 @@ def decompress_sum(keys: torch.Tensor, values: torch.Tensor, *,
     """Scatter-add a KV stream back to a dense flat vector of ``size``.
 
     Keys below 0 (EMPTY) are dropped; duplicate keys accumulate, so a
-    partially combined stream still decompresses to the exact sum.  On a
-    CUDA tensor ``index_add_`` sums duplicates in no fixed order.
+    partially combined stream still decompresses to the exact sum.  Each
+    slot adds its duplicates in stream order, on the CPU and on a card
+    (``aggops``' in-order segment sum).
     """
     valid = keys >= 0
     safe = torch.where(valid, keys, 0).to(torch.int64)
     contrib = torch.where(valid, values, torch.zeros_like(values))
-    out = torch.zeros((size,), dtype=values.dtype, device=values.device)
-    return out.index_add_(0, safe, contrib)
+    return aggops.get("sum").segment_reduce(contrib, safe, size)
 
 
 def blockwise_topk_compress(grad: torch.Tensor, state: CompressorState, *,

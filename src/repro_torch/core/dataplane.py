@@ -310,9 +310,19 @@ class LevelState:
         self._exact_rows = 0
         self._value_sample: torch.Tensor | None = None  # dtype/lane template
         self.n_in = 0
-        self.n_evict = 0
+        self._n_evict: torch.Tensor | int = 0  # on the device until read
         self.n_out = 0
         self._flushed = False
+
+    @property
+    def n_evict(self) -> int:
+        """FPE evictions so far.  Counted on the device per ingest and read
+        back only here, so an ingest waits on one fewer synchronisation."""
+        return int(self._n_evict)
+
+    @n_evict.setter
+    def n_evict(self, value: int) -> None:
+        self._n_evict = value
 
     def _empty_out(self) -> tuple[torch.Tensor, torch.Tensor]:
         k = torch.zeros((0,), dtype=torch.int32, device=self.device)
@@ -387,12 +397,13 @@ class LevelState:
         self._tk, self._tv = res.table_keys, res.table_values
         ek, ev = res.evict_keys, res.evict_values
         mask = ek != EMPTY_KEY
-        self.n_evict += int(mask.sum())
+        self._n_evict = self._n_evict + mask.sum()
         if self.spec.bpe:  # combine this packet's evictions (fixed shape)
             c = kvagg.sorted_combine(ek, ev, op=self.op)
-            ek, ev = c.unique_keys, c.combined_values
-            mask = ek != EMPTY_KEY
-        return ek[mask], ev[mask]
+            nu = int(c.n_unique)  # the unique keys are packed in front
+            return c.unique_keys[:nu], c.combined_values[:nu]
+        keep = mask.nonzero().squeeze(1)
+        return ek.index_select(0, keep), ev.index_select(0, keep)
 
     def _compact_exact(self) -> None:
         """Collapse the capacity-0 buffer to its unique-key combine (one

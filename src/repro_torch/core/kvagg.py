@@ -4,10 +4,11 @@ ported to torch (counterpart of ``repro/core/kvagg.py``).
 Semantics (paper §4.2.4), unchanged from the JAX package:
 
   * The **FPE** is a hash table of ``capacity`` slots in fast memory
-    (shared memory in the CUDA kernel).  For each incoming (key, value)
-    pair: hash the key, probe the bucket; on hit combine; on an empty way
-    insert; on a full bucket EVICT way 0 downstream, shift the row left
-    and insert at the last way.  The engine never stalls.
+    (in the CUDA kernel each bucket row is held in registers by the one
+    thread or warp that walks that bucket's pairs).  For each incoming
+    (key, value) pair: hash the key, probe the bucket; on hit combine; on
+    an empty way insert; on a full bucket EVICT way 0 downstream, shift
+    the row left and insert at the last way.  The engine never stalls.
   * The **BPE** digests the eviction stream exactly: sort + segment
     reduce (``sorted_combine``).
 
@@ -168,24 +169,32 @@ def _fpe_scan_plain(keys, values, *, n_buckets: int, ways: int, op: str,
 
 
 def _group_reduce(keys, values, *, op):
-    """THE bulk group-by-key reduction (DESIGN.md §8): one key sort + a
-    binary-search segment-id map + one unsorted segment reduce.
+    """THE bulk group-by-key reduction (DESIGN.md §8): one stable key
+    sort + a binary-search segment-id map + one segment reduce.
 
-    Returns (k_s, real_start, comb): keys sorted ascending, True at the
-    first sorted occurrence of each real key, and each group's combined
+    Returns (k_s, real_start, comb, pos): keys sorted ascending, True at
+    the first sorted occurrence of each real key, each group's combined
     value indexed by the key's FIRST SORTED POSITION (other entries are
-    never read).  ``torch.searchsorted`` is left-side by default, as
-    ``jnp.searchsorted(method="scan")`` is.
+    never read), and ``arange(n)``.  ``torch.searchsorted`` is left-side
+    by default, as ``jnp.searchsorted(method="scan")`` is, so it maps each
+    sorted key to its first position.  The values are reduced in sorted
+    order: the sort is stable, so each group still adds in ascending
+    stream order (as ``jax.ops.segment_sum`` does) and is one contiguous
+    run, which the card's in-order segment sum walks.  The EMPTY_KEY pads
+    get id -1 and are dropped: their entries are never read, and on the
+    card one thread would otherwise walk them all.
     """
     aggop = aggops.get(op)
     n = keys.shape[0]
-    k_s = torch.sort(keys).values
-    change = torch.ones_like(k_s, dtype=torch.bool)
-    change[1:] = k_s[1:] != k_s[:-1]
-    real_start = change & (k_s != EMPTY_KEY)
-    seg = torch.searchsorted(k_s, keys.contiguous())
-    comb = aggop.segment_reduce(values, seg, n)
-    return k_s, real_start, comb
+    k_s, perm = torch.sort(keys, stable=True)
+    pos = torch.arange(n, dtype=torch.int64, device=keys.device)
+    first = torch.searchsorted(k_s, k_s)
+    real = k_s != EMPTY_KEY
+    real_start = (first == pos) & real
+    seg = torch.where(real, first, -1)
+    comb = aggop.segment_reduce(values.index_select(0, perm), seg, n,
+                                ids_grouped=True)
+    return k_s, real_start, comb, pos
 
 
 def _fpe_batched(
@@ -240,8 +249,7 @@ def _fpe_batched(
         tv = table_values.reshape((n_buckets, ways) + lane_shape)
 
     # --- stage 1: within-block pre-combine -------------------------------
-    k_s, real_start, comb = _group_reduce(keys, values, op=op)
-    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    k_s, real_start, comb, pos = _group_reduce(keys, values, op=op)
 
     # --- stage 2: bucket-major distinct stream (one sort) ----------------
     bucket_s = hash_key(k_s, n_buckets).to(torch.int64)
@@ -342,18 +350,17 @@ def sorted_combine(keys: torch.Tensor, values: torch.Tensor, *,
     if n == 0:
         return CombineResult(keys.to(torch.int32), values,
                              torch.zeros((), dtype=torch.int32, device=dev))
-    k_s, real_start, comb = _group_reduce(keys, values, op=op)
-    pos = torch.arange(n, dtype=torch.int64, device=dev)
-    # k_s is ascending, so first positions sort to ascending-key order
-    fp = torch.sort(torch.where(real_start, pos, _IMAX)).values
-    n_unique = real_start.sum().to(torch.int32)
+    k_s, real_start, comb, pos = _group_reduce(keys, values, op=op)
+    # k_s is ascending, so first positions sort to ascending-key order;
+    # the rest sort after them as n - 1, an index that is always in range
+    fp = torch.sort(torch.where(real_start, pos, n - 1)).values
+    n_unique = real_start.sum(dtype=torch.int32)
     valid = pos < n_unique
     valid_l = valid.reshape(tuple(valid.shape) + (1,) * lane_nd)
-    fp_c = fp.clamp(0, n - 1)
-    ident = aggop.identity(values.dtype, dev)
-    uk = torch.where(valid, k_s[fp_c], EMPTY_KEY)
-    cv = torch.where(valid_l, comb[fp_c], ident)
-    return CombineResult(uk.to(torch.int32), cv, n_unique)
+    ident = aggop.identity(values.dtype)  # a CPU scalar: no copy to dev
+    uk = torch.where(valid, k_s.index_select(0, fp), EMPTY_KEY)
+    cv = torch.where(valid_l, comb.index_select(0, fp), ident)
+    return CombineResult(uk, cv, n_unique)
 
 
 class TwoLevelResult(NamedTuple):

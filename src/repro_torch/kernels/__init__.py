@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the port (counterpart of ``repro.kernels``).
 
   kv_aggregate   — the FPE hash-combine engine, CUDA C++ (csrc/fpe_aggregate.cu)
-  topk_compress  — per-row magnitude top-k, Triton
+  topk_compress  — per-row magnitude top-k, CUDA C++ (csrc/topk_rows.cu)
+  segment_sum    — the BPE's in-order segmented sum, CUDA C++
+                   (csrc/segment_sum.cu)
   ops            — the public wrappers (two_level_aggregate, compress_grad)
   ref            — the plain torch oracles
 

@@ -3,14 +3,18 @@
 Port of the Pallas TPU kernel ``_fpe_kernel`` / ``fpe_aggregate_pallas``
 (``src/repro/kernels/kv_aggregate.py:62`` and ``:151``).  The kernel is
 ``csrc/fpe_aggregate.cu``; its source note says how the TPU design (a
-VMEM table carried across a sequential grid) maps onto one thread block
-that walks the stream in order with the table in shared memory (or in
-global memory when it does not fit), and what bounds it: a dependent
-chain of one probe-and-update per element, not bandwidth.
+VMEM table carried across a sequential grid) becomes a bucket-parallel
+scan: the pairs are partitioned by bucket (stream order kept within a
+bucket) and each bucket's run is walked by one thread (its row in
+registers) or, for rows of more than 4 ways, one warp.  What bounds it is
+the longest bucket chain, not bandwidth.  A stream of at most
+``SMALL_N`` pairs is one launch that partitions in shared memory.
 
 Semantics are bit-identical to the sequential scan ``core.kvagg._fpe_scan``
 whose plain form, :func:`fpe_scan_plain`, is the Python loop in
 ``core.kvagg`` (the oracle the kernel is held against on the card).
+:func:`fpe_scan_partitioned_plain` is the plain model of the kernel's
+algorithm, on no path: the tests hold it against the scan.
 
 Dispatch rule (no fallbacks): a CPU tensor takes the plain scan; a CUDA
 tensor launches the kernel or raises.  ``launches`` counts kernel
@@ -43,6 +47,9 @@ OP_CODES = {"sum": 0, "count": 0, "mean": 0, "max": 1, "min": 2,
 #: value dtype -> the kernel's dtype code
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 MAX_LANES = 4
+#: the longest stream the one-launch path takes: ``kSmallN`` in the .cu,
+#: which refuses a longer stream passed without its partition
+SMALL_N = 4096
 
 #: kernel launches in this process (set to 0 to start a count)
 launches = 0
@@ -55,19 +62,55 @@ def _lib() -> ctypes.CDLL:
     if lib.fpe_aggregate_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.fpe_aggregate_launch.argtypes = [p, p, i, i, i, i, i, i,
-                                             p, p, p, p, p, p, p]
+                                             p, p, p, p, p, p,
+                                             p, p, p, p, p]
         lib.fpe_aggregate_launch.restype = i
-        lib.fpe_table_in_shared.argtypes = [i, i, i, i]
-        lib.fpe_table_in_shared.restype = i
+        lib.fpe_bucket_launch.argtypes = [p, i, i, p, p]
+        lib.fpe_bucket_launch.restype = i
     return lib
 
 
-def table_in_shared(n_buckets: int, ways: int, lanes: int,
-                    dtype: torch.dtype) -> bool:
-    """Whether the kernel keeps a table of this geometry in shared memory
-    (else global memory) on the current card."""
-    return bool(_lib().fpe_table_in_shared(n_buckets, ways, lanes,
-                                           DTYPE_CODES[dtype]))
+def fpe_scan_partitioned_plain(keys, values, *, n_buckets: int, ways: int,
+                               op: str, table_keys=None, table_values=None):
+    """Plain model of the kernel's algorithm (CPU tensors; tests only).
+
+    Partition: each pair's bucket (pads to ``n_buckets``), a stable sort,
+    each bucket's run.  Walk: each bucket's row from the resume table (or
+    empty), its run applied in order, each eviction written at the pair's
+    own stream index, the row written once.  Returns what
+    :func:`fpe_scan_plain` returns, and must equal it bit for bit.
+    """
+    combine = aggops.get(op).combine
+    n, lanes = values.shape
+    bkt = torch.where(keys == EMPTY_KEY, n_buckets,
+                      aggops.hash_key(keys, n_buckets))
+    perm = torch.sort(bkt, stable=True).indices
+    starts = torch.searchsorted(bkt[perm], torch.arange(n_buckets + 1,
+                                                        dtype=bkt.dtype))
+    if table_keys is None:
+        tk = torch.full((n_buckets, ways), EMPTY_KEY, dtype=torch.int32)
+        tv = torch.zeros((n_buckets, ways, lanes), dtype=values.dtype)
+    else:
+        tk = table_keys.reshape(n_buckets, ways).clone()
+        tv = table_values.reshape(n_buckets, ways, lanes).clone()
+    ek = torch.full((n,), EMPTY_KEY, dtype=torch.int32)
+    ev = torch.zeros((n, lanes), dtype=values.dtype)
+    for b in range(n_buckets):
+        rk, rv = tk[b].tolist(), tv[b].clone()  # the worker's "registers"
+        for i in perm[starts[b]:starts[b + 1]].tolist():
+            k, x = int(keys[i]), values[i]
+            if k in rk:
+                w = rk.index(k)
+                rv[w] = combine(rv[w], x)
+            elif EMPTY_KEY in rk:
+                w = rk.index(EMPTY_KEY)
+                rk[w], rv[w] = k, x
+            else:
+                ek[i], ev[i] = rk[0], rv[0]
+                rk = rk[1:] + [k]
+                rv = torch.cat([rv[1:], x[None]])
+        tk[b], tv[b] = torch.tensor(rk, dtype=torch.int32), rv
+    return tk.reshape(-1), tv.reshape(-1, lanes), ek, ev
 
 
 def _check(t: torch.Tensor, name: str, dev, dtype, shape) -> None:
@@ -80,6 +123,26 @@ def _check(t: torch.Tensor, name: str, dev, dtype, shape) -> None:
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def partition(keys: torch.Tensor, n_buckets: int):
+    """The kernel's partition of a stream on the card: (perm [n] int64,
+    the stream indices ordered by bucket with stream order kept within a
+    bucket; starts [n_buckets + 1] int64, each bucket's run in perm).
+    Pads go to bucket ``n_buckets``, past the last run."""
+    n = keys.shape[0]
+    bkt = torch.empty((n,), dtype=torch.int32, device=keys.device)
+    with _build.on_device(keys.device):
+        rc = _lib().fpe_bucket_launch(
+            keys.data_ptr(), n, n_buckets, bkt.data_ptr(),
+            torch.cuda.current_stream(keys.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"FPE bucket launch failed: cudaError {rc}")
+    sb, perm = torch.sort(bkt, stable=True)
+    starts = torch.searchsorted(
+        sb, torch.arange(n_buckets + 1, dtype=torch.int32,
+                         device=keys.device))
+    return perm, starts
 
 
 def _launch(keys, values, *, n_buckets, ways, op, table_keys, table_values):
@@ -112,15 +175,22 @@ def _launch(keys, values, *, n_buckets, ways, op, table_keys, table_values):
     ek = torch.empty((n,), dtype=torch.int32, device=dev)
     ev = torch.empty((n, lanes), dtype=values.dtype, device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        part = (None,) * 4
+        if n > SMALL_N:
+            perm, starts = partition(keys, n_buckets)
+            run_k = torch.empty_like(keys)
+            run_v = torch.empty_like(values)
+            part = (perm.data_ptr(), starts.data_ptr(), run_k.data_ptr(),
+                    run_v.data_ptr())
         rc = lib.fpe_aggregate_launch(
             keys.data_ptr(), values.data_ptr(), n, lanes, n_buckets, ways,
             OP_CODES[op], DTYPE_CODES[values.dtype],
             None if table_keys is None else table_keys.data_ptr(),
             None if table_values is None else table_values.data_ptr(),
             out_tk.data_ptr(), out_tv.data_ptr(), ek.data_ptr(),
-            ev.data_ptr(), stream)
+            ev.data_ptr(), *part, stream)
     if rc != 0:
         raise RuntimeError(f"FPE kernel launch failed: cudaError {rc}")
     launches += 1

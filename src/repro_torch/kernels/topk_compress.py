@@ -1,22 +1,20 @@
-"""Per-row magnitude top-k on Hopper (the KV payload producer): Triton.
+"""Per-row magnitude top-k on Hopper (the KV payload producer): CUDA C++
+kernel wrapper.
 
 Port of the Pallas TPU kernel ``_topk_kernel`` / ``topk_rows_pallas``
 (``src/repro/kernels/topk_compress.py:29`` and ``:47``).  What it
-computes: k argmax sweeps over ``|x|`` in f32 per row; each sweep takes
-the largest remaining magnitude, the LOWEST column that holds it (ties to
-the lower index), and masks that column to -inf.  It returns the signed
-values in ``x.dtype`` and the int32 column indices, in descending
-magnitude.
+computes: per row, the k columns of largest ``|x|`` (in f32), descending,
+ties to the LOWEST column, NaN above +inf; the signed values in
+``x.dtype`` and the int32 column indices.
 
-Design: one Triton program per row holds the whole ``cols``-wide row in
-registers (``BLOCK_COLS``, a power-of-two ``tl.constexpr``; a ragged
-width is masked), so the row is read from device memory once and the k
-sweeps are two register reductions each (``tl.max``, then ``tl.min`` of
-the matching column indices).  What bounds it on this card: reading
-``rows * cols * bytes`` once — about 30 us for the 100 MB gradient
-matrix at 3.35 TB/s — with k small (~1% of cols) the sweeps should stay
-under that; the per-sweep cross-warp reductions are what a later PR
-would tune.
+The kernel is ``csrc/topk_rows.cu``: one block per row reads the row
+once, finds the k-th largest magnitude by a radix select over the bit
+patterns of ``|x|`` (four 8-bit digit histograms in shared memory), keeps
+every column above it and the lowest-column ties at it (an ordered,
+ballot-ranked compaction), and sorts the k candidates.  What bounds it:
+reading ``rows * cols * bytes`` once.  :func:`topk_rows_radix_plain` is
+the plain model of that algorithm, on no path: the tests hold it against
+the plain version.
 
 Dispatch rule (no fallbacks): a CPU tensor takes :func:`topk_rows_plain`
 (a stable descending sort on ``|x|``, which keeps ties at the lower
@@ -26,7 +24,7 @@ counts kernel launches and nothing else.
 
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import torch
 
@@ -35,7 +33,19 @@ from . import _build
 #: kernel launches in this process (set to 0 to start a count)
 launches = 0
 
-_DTYPES = (torch.float32, torch.bfloat16)
+#: value dtype -> the kernel's dtype code
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the key of every NaN: above +inf's bit pattern
+NAN_KEY = 0xFFFFFFFF
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library("topk_rows")
+    if lib.topk_rows_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.topk_rows_launch.argtypes = [p, i, i, i, i, p, p, p]
+        lib.topk_rows_launch.restype = i
+    return lib
 
 
 def topk_rows_plain(x: torch.Tensor, k: int):
@@ -49,38 +59,53 @@ def topk_rows_plain(x: torch.Tensor, k: int):
     return torch.gather(x, 1, idx), idx.to(torch.int32)
 
 
-@functools.cache
-def _kernel():
-    _build.triton_cache_dir()
-    import triton
-    import triton.language as tl
+def magnitude_keys(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's ordering key of each element: the bit pattern of
+    ``|x|`` in f32 as a non-negative int64, every NaN ``NAN_KEY``."""
+    u = x.to(torch.float32).abs().view(torch.int32).to(torch.int64)
+    return torch.where(u > 0x7F800000, NAN_KEY, u)
 
-    @triton.jit
-    def topk_rows_kernel(x_ptr, vals_ptr, idx_ptr, cols, stride_row,
-                         K: tl.constexpr, BLOCK_COLS: tl.constexpr):
-        row = tl.program_id(0).to(tl.int64)
-        offs = tl.arange(0, BLOCK_COLS)
-        inb = offs < cols
-        x = tl.load(x_ptr + row * stride_row + offs, mask=inb, other=0.0)
-        x32 = x.to(tl.float32)
-        mag = tl.where(inb, tl.abs(x32), float("-inf"))
-        for j in range(K):
-            m = tl.max(mag, axis=0)
-            am = tl.min(tl.where(mag == m, offs, BLOCK_COLS), axis=0)
-            hit = offs == am
-            v = tl.max(tl.where(hit, x32, float("-inf")), axis=0)
-            tl.store(vals_ptr + row * K + j, v.to(vals_ptr.dtype.element_ty))
-            tl.store(idx_ptr + row * K + j, am.to(tl.int32))
-            mag = tl.where(hit, float("-inf"), mag)
 
-    return triton, topk_rows_kernel
+def topk_rows_radix_plain(x: torch.Tensor, k: int):
+    """Plain model of the kernel's algorithm (CPU tensors; tests only):
+    radix select of the k-th largest key, 8 bits a pass from the top,
+    then the keys above it and the lowest-column ties at it, sorted by
+    (key descending, column ascending).  Returns what
+    :func:`topk_rows_plain` returns, and must equal it bit for bit."""
+    rows, cols = x.shape
+    if k > cols:
+        raise ValueError(f"k={k} > cols={cols}")
+    keys = magnitude_keys(x)
+    idx = torch.empty((rows, k), dtype=torch.int64)
+    for r in range(rows):
+        key = keys[r]
+        prefix, mask, rank = 0, 0, k
+        for shift in (24, 16, 8, 0):
+            match = (key & mask) == prefix
+            hist = torch.bincount((key[match] >> shift) & 0xFF,
+                                  minlength=256)
+            above = 0
+            for d in range(255, -1, -1):  # the digit holding the rank
+                if above + int(hist[d]) >= rank:
+                    break
+                above += int(hist[d])
+            prefix |= d << shift
+            mask |= 0xFF << shift
+            rank -= above
+        gt = torch.nonzero(key > prefix).flatten()
+        ties = torch.nonzero(key == prefix).flatten()[:rank]  # column order
+        cand = torch.cat([gt, ties])
+        order = sorted(cand.tolist(), key=lambda c: (-int(key[c]), c))
+        idx[r] = torch.tensor(order, dtype=torch.int64)
+    # gather copies the bits of each value, NaN payloads included
+    return torch.gather(x, 1, idx), idx.to(torch.int32)
 
 
 def topk_rows(x: torch.Tensor, *, k: int):
     """Top-k by |.| per row of x [rows, cols] -> (values, indices) [rows, k].
 
     CPU tensors take :func:`topk_rows_plain`; CUDA tensors launch the
-    Triton kernel.  ``k > cols`` raises ``ValueError`` on both.
+    kernel.  ``k > cols`` raises ``ValueError`` on both.
     """
     global launches
     if x.dim() != 2:
@@ -92,18 +117,19 @@ def topk_rows(x: torch.Tensor, *, k: int):
         return topk_rows_plain(x, k)
     if x.device.type != "cuda":
         raise ValueError(f"the top-k kernel needs CUDA tensors, got {x.device}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in DTYPE_CODES:
         raise ValueError(f"unsupported dtype {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     vals = torch.empty((rows, k), dtype=x.dtype, device=x.device)
     idx = torch.empty((rows, k), dtype=torch.int32, device=x.device)
-    if rows:
-        triton, kern = _kernel()
-        block = max(16, triton.next_power_of_2(cols))
-        with torch.cuda.device(x.device):
-            kern[(rows,)](x, vals, idx, cols, x.stride(0), K=k,
-                          BLOCK_COLS=block,
-                          num_warps=8 if block >= 2048 else 4)
+    if rows and k:
+        with _build.on_device(x.device):
+            rc = _lib().topk_rows_launch(
+                x.data_ptr(), rows, cols, k, DTYPE_CODES[x.dtype],
+                vals.data_ptr(), idx.data_ptr(),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:  # a row too wide for shared memory is refused here
+            raise RuntimeError(f"top-k kernel launch failed: cudaError {rc}")
         launches += 1
     return vals, idx

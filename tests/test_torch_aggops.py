@@ -1,12 +1,14 @@
 """repro_torch.core.aggops against repro.core.aggops (CPU).
 
 Tolerances: hashes, identities, integer and max/min results and sums
-added in the same order are exact.  logsumexp is held to rtol 1e-6,
-atol 1e-6 in f32 (torch's and XLA's exp/log/log1p differ in the last ulp,
-and ``m + log(s)`` may cancel towards 0).  In bf16 ``jnp.logaddexp``
-rounds every intermediate while ``torch.logaddexp`` computes in f32 and
-rounds once, so the two may part by two bf16 ulps of the larger input:
-|got - want| <= 2**-6 * max(|a|, |b|, 1).
+added in the same order are exact, and so is logsumexp in bf16: the
+port's ``logaddexp`` repeats ``jnp.logaddexp`` op by op, each op rounding
+to bf16.  In f32 logsumexp is held to rtol 1e-6, atol 1e-6, and the
+count of elements that are not bit-identical is stated: the port's f32
+exp, log1p and log are correctly rounded, XLA's are approximations that
+miss by an ulp or two, and ``m + log(s)`` may cancel towards 0.  With
+XLA's transcendentals swapped in, the port is bit-identical in f32 too
+(``test_logsumexp_differs_only_by_the_f32_transcendentals``).
 """
 
 import jax.numpy as jnp
@@ -32,20 +34,30 @@ def _np(t):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def _assert_close(jax_out, torch_out, op, dtype, scale=None):
-    """``scale``: the larger input magnitude per element (bf16 logsumexp)."""
+def _n_differ(got, want) -> int:
+    """Elements that are not bit-identical (NaN equals NaN)."""
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    return int((~same).sum())
+
+
+def _assert_close(jax_out, torch_out, op, dtype, max_differ=0):
+    """Exact, except f32 logsumexp: rtol 1e-6, atol 1e-6, and at most
+    ``max_differ`` elements not bit-identical."""
     want = np.asarray(jax_out).astype(np.float64)
     got = _np(torch_out).astype(np.float64)
-    if op == "logsumexp" and dtype == "bfloat16":
-        scale = np.maximum(np.abs(want) if scale is None else scale, 1.0)
-        same = got == want  # equal infinities included
-        with np.errstate(invalid="ignore"):  # inf - inf where both agree
-            near = np.abs(got - want) <= 2**-6 * scale
-        assert np.all(same | near)
-    elif op == "logsumexp":
+    if op == "logsumexp" and dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        assert _n_differ(got, want) <= max_differ
     else:
         np.testing.assert_array_equal(got, want)
+
+
+def _xla(fn, jdtype):
+    """A jnp transcendental as a torch op on CPU tensors."""
+    def op(x):
+        out = fn(jnp.asarray(x.float().numpy()).astype(jdtype))
+        return _t(np.asarray(out))
+    return op
 
 
 def _values(rng, n, dtype):
@@ -101,9 +113,36 @@ def test_combine_matches(op, dtype, rng):
     want = jaggops.get(op).combine(jnp.asarray(a), jnp.asarray(b))
     got = aggops.get(op).combine(_t(a), _t(b))
     assert got.dtype == DTYPES[dtype][1]
-    scale = np.maximum(np.abs(a.astype(np.float64)),
-                       np.abs(b.astype(np.float64)))
-    _assert_close(want, got, op, dtype, scale)
+    # f32 logsumexp: at most 20 of these 256 values are not bit-identical
+    # (11 in this file's order; 3.1% of 65,536 random pairs), every one
+    # from XLA's f32 exp/log1p (see the next test)
+    _assert_close(want, got, op, dtype, max_differ=20)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_logsumexp_differs_only_by_the_f32_transcendentals(dtype,
+                                                           monkeypatch):
+    """With XLA's exp, log1p and log in place of the port's correctly
+    rounded ones, combine and segment_reduce are bit-identical."""
+    rng = np.random.default_rng(12)
+    jd = DTYPES[dtype][0]
+    for name, fn in (("_exp", jnp.exp), ("_log1p", jnp.log1p),
+                     ("_log", jnp.log)):
+        monkeypatch.setattr(aggops, name, _xla(fn, jd))
+    a, b = _values(rng, 256, dtype), _values(rng, 256, dtype)
+    edge = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 3.0], np.float32)
+    a = np.concatenate([a, np.repeat(edge, 6).astype(a.dtype)])
+    b = np.concatenate([b, np.tile(edge, 6).astype(b.dtype)])
+    jop, top = jaggops.get("logsumexp"), aggops.get("logsumexp")
+    want = np.asarray(jop.combine(jnp.asarray(a), jnp.asarray(b))
+                      .astype(jnp.float32))
+    got = _np(top.combine(_t(a), _t(b)))
+    assert _n_differ(got, want) == 0
+    seg = rng.integers(0, 40, 256).astype(np.int32)
+    want = jop.segment_reduce(jnp.asarray(a[:256]), jnp.asarray(seg),
+                              num_segments=45)
+    got = top.segment_reduce(_t(a[:256]), _t(seg), 45)
+    assert _n_differ(_np(got), np.asarray(want.astype(jnp.float32))) == 0
 
 
 def test_identity_neutral_under_combine():
@@ -160,4 +199,6 @@ def test_segment_reduce_matches(op, dtype, rng):
     want = jop.segment_reduce(jc, jnp.asarray(seg), num_segments=segs)
     got = top.segment_reduce(tc, _t(seg), segs)
     assert tuple(got.shape) == tuple(want.shape)
-    _assert_close(want, got, op, dtype)
+    # f32 logsumexp: at most 3 of 40 segments are not bit-identical (1 in
+    # this file's order, 0-1 in other draws), from XLA's f32 exp and log
+    _assert_close(want, got, op, dtype, max_differ=3)

@@ -20,7 +20,7 @@ import torch
 from repro.core import aggops as jaggops
 from repro.core import kvagg as jkvagg
 from repro_torch import convert
-from repro_torch.core import kvagg
+from repro_torch.core import aggops, kvagg
 
 EMPTY = -1
 INT32_MAX = 2**31 - 1
@@ -181,7 +181,10 @@ def test_fast_path_guard_follows_the_limit(monkeypatch):
 
 
 @pytest.mark.parametrize("op", OPS)
-def test_sorted_combine_matches_jax(op):
+def test_sorted_combine_matches_jax(op, monkeypatch):
+    """logsumexp in f32: 4 of the combined values are not bit-identical
+    (within rtol 1e-6, atol 1e-6), every one from XLA's f32 exp and log:
+    with those swapped in, the port is bit-identical."""
     keys, raw = _stream(13, n=300, variety=64)
     carried = _carried(op, raw)
     jc = jkvagg.sorted_combine(jnp.asarray(keys), jnp.asarray(carried), op=op)
@@ -190,6 +193,15 @@ def test_sorted_combine_matches_jax(op):
     _assert_same(jc.unique_keys, tc.unique_keys, op, "keys")
     _assert_same(jc.combined_values, tc.combined_values, op, "values")
     assert INT32_MAX in tc.unique_keys.tolist()
+    if op == "logsumexp":
+        want = np.asarray(jc.combined_values)
+        assert (tc.combined_values.numpy() != want).sum() <= 4
+        for name, fn in (("_exp", jnp.exp), ("_log", jnp.log)):
+            monkeypatch.setattr(
+                aggops, name,
+                lambda x, fn=fn: _t(np.asarray(fn(jnp.asarray(x.numpy())))))
+        tc = kvagg.sorted_combine(_t(keys), _t(carried), op=op)
+        np.testing.assert_array_equal(tc.combined_values.numpy(), want)
 
 
 def test_sorted_combine_edge_cases():

@@ -5,10 +5,10 @@ machine with a card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_on_card.py
 
-Tolerances: kernel outputs are bit-identical to the plain versions,
-except logsumexp (rtol 1e-6, atol 1e-6: the card's expf/log1pf are not
-the CPU's).  A whole cascade's values: rtol 1e-6, atol 1e-5, since the
-BPE's ``index_add_`` on the card adds in no fixed order.
+Tolerances: none.  Kernel outputs are bit-identical to the plain
+versions, logsumexp included (both compute exp and log1p in f64 and
+round to f32), and a whole cascade on the card equals the CPU's bit for
+bit, since the BPE's sums add in ascending index order on both.
 """
 
 import numpy as np
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core import aggops, dataplane, kvagg
 from repro_torch.core.dataplane import CascadePlan, LevelSpec
-from repro_torch.kernels import kv_aggregate, topk_compress
+from repro_torch.kernels import kv_aggregate, segment_sum, topk_compress
 
 pytestmark = pytest.mark.cuda
 EMPTY = -1
@@ -28,6 +28,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CPU tests hold the plain versions")
     kv_aggregate.launches = topk_compress.launches = 0
+    segment_sum.launches = 0
     return torch.device("cuda")
 
 
@@ -44,16 +45,28 @@ def _stream(seed, n, variety, op, dtype):
     return torch.from_numpy(keys), vals
 
 
+def _same(got, want):
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.is_floating_point():  # bit for bit
+            g = g.view(torch.int16 if g.dtype == torch.bfloat16
+                       else torch.int32)
+            w = w.view(g.dtype)
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("op,dtype", [
     ("sum", torch.float32), ("sum", torch.bfloat16), ("max", torch.int32),
     ("min", torch.float32), ("count", torch.int32), ("mean", torch.float32),
-    ("logsumexp", torch.float32)])
-# 16384 x 4: a shared-memory table past the 48 KB default (opt-in launch);
-# 65536 x 4: a table in global memory
+    ("logsumexp", torch.float32), ("logsumexp", torch.bfloat16)])
+# 64 x 1, 256 x 4: one thread per bucket; 2048 x 64: one warp per bucket
 @pytest.mark.parametrize("capacity,ways", [(64, 1), (256, 4), (2048, 64),
                                            (16384, 4), (65536, 4)])
-def test_fpe_kernel_matches_plain_scan(card, op, dtype, capacity, ways):
-    keys, vals = _stream(capacity + ways, 2048, 600, op, dtype)
+# 2048 pairs: the one-launch path; 6000: the partitioned one
+@pytest.mark.parametrize("n", [2048, 6000])
+def test_fpe_kernel_matches_plain_scan(card, op, dtype, capacity, ways, n):
+    keys, vals = _stream(capacity + ways, n, 600, op, dtype)
     ways, nb, _ = kvagg._fpe_geometry(capacity, ways)
     tk0, tv0, _, _ = kv_aggregate.fpe_scan(keys[:512], vals[:512],
                                            n_buckets=nb, ways=ways, op=op)
@@ -64,25 +77,85 @@ def test_fpe_kernel_matches_plain_scan(card, op, dtype, capacity, ways):
                                 table_values=tv0.to(card))
     torch.cuda.synchronize()
     assert kv_aggregate.launches == 1
-    for g, w in zip(got, want):
-        g = g.cpu()
-        if op == "logsumexp" and g.is_floating_point():
-            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
-        else:
-            assert torch.equal(g, w)
+    _same(got, want)
+
+
+def _same_bucket_keys(n, n_buckets, bucket=0):
+    out, k = [], 0
+    while len(out) < n:
+        if aggops.hash_key_int(k, n_buckets) == bucket:
+            out.append(k)
+        k += 1
+    return np.asarray(out, np.int32)
+
+
+@pytest.mark.parametrize("n", [1, 3000, 9000])
+@pytest.mark.parametrize("ways", [1, 4, 8, 64])
+@pytest.mark.parametrize("case", ["one_key", "one_bucket_distinct",
+                                  "all_distinct", "all_pads", "empty"])
+def test_fpe_kernel_adversarial_streams(card, case, ways, n):
+    """Whole-stream chains (one key; one bucket of distinct keys), all
+    keys distinct, pads only, n = 0 and n = 1, on both launch paths."""
+    nb = 16
+    r = np.random.default_rng(n + ways)
+    vals = torch.from_numpy(r.standard_normal((n, 1)).astype(np.float32))
+    if case == "one_key":
+        keys = np.full(n, 77, np.int32)
+    elif case == "one_bucket_distinct":
+        keys = _same_bucket_keys(n, nb, bucket=5)
+    elif case == "all_distinct":
+        keys = r.permutation(4 * n)[:n].astype(np.int32)
+    elif case == "all_pads":
+        keys = np.full(n, EMPTY, np.int32)
+    else:
+        keys, vals = np.zeros(0, np.int32), vals[:0]
+    keys = torch.from_numpy(keys)
+    want = kv_aggregate.fpe_scan(keys, vals, n_buckets=nb, ways=ways,
+                                 op="sum")
+    got = kv_aggregate.fpe_scan(keys.to(card), vals.to(card), n_buckets=nb,
+                                ways=ways, op="sum")
+    torch.cuda.synchronize()
+    _same(got, want)
 
 
 @pytest.mark.parametrize("shape,k,dtype", [((64, 4096), 41, torch.float32),
                                            ((13, 100), 7, torch.float32),
-                                           ((8, 4096), 41, torch.bfloat16)])
+                                           ((8, 4096), 41, torch.bfloat16),
+                                           ((6, 128), 128, torch.float32),
+                                           ((5, 3000), 300, torch.float32)])
 def test_topk_kernel_matches_plain(card, shape, k, dtype):
     x = torch.randn(shape, device=card).to(dtype)
     x[0, :] = 0.0
+    x[0, 1::5] = -0.0
     x[1, 3::7] = 5.0  # ties go to the lower index
+    x[2, [1, 4, 9]] = float("nan")  # NaN ranks above +inf
+    x[2, [2, 6]] = float("inf")
+    x[3, [0, 8]] = -float("inf")
+    x[4, :] = -2.5  # all magnitudes equal
     v, i = topk_compress.topk_rows(x, k=k)
     pv, pi = topk_compress.topk_rows_plain(x, k)
     assert topk_compress.launches == 1
-    assert torch.equal(i, pi) and torch.equal(v, pv)
+    assert torch.equal(i, pi)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(v.view(bits), pv.view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("ids_grouped", [False, True])
+def test_segment_sum_kernel_matches_plain(card, dtype, ids_grouped):
+    r = np.random.default_rng(3)
+    n, segs = 20000, 700
+    ids = torch.from_numpy(r.integers(0, segs - 20, n))
+    if ids_grouped:
+        ids = torch.sort(ids).values
+    raw = torch.from_numpy(r.standard_normal((n, 2)).astype(np.float32) * 9)
+    vals = raw.to(dtype)
+    want = segment_sum.segment_sum_plain(vals, ids, segs)
+    got = segment_sum.segment_sum(vals.to(card), ids.to(card), segs,
+                                  ids_grouped=ids_grouped)
+    assert segment_sum.launches == 1
+    _same([got], [want])
 
 
 def test_kernel_wrappers_refuse_bad_inputs(card):
@@ -106,8 +179,7 @@ def test_cascade_and_stream_on_card_match_cpu(card):
                                 backend="cuda")
     assert torch.equal(got.keys.cpu(), want.keys)
     assert torch.equal(got.level_out.cpu(), want.level_out)
-    torch.testing.assert_close(got.values.cpu(), want.values, rtol=1e-6,
-                               atol=1e-5)
+    assert torch.equal(got.values.cpu(), want.values)
     batches = [(keys[i:i + 59].numpy(), vals[i:i + 59].numpy())
                for i in range(0, 3000, 59)]
     kv_aggregate.launches = 0
@@ -115,4 +187,5 @@ def test_cascade_and_stream_on_card_match_cpu(card):
     assert kv_aggregate.launches >= len(batches)
     ref = dataplane.run_cascade_stream(iter(batches), plan, device="cpu")
     assert torch.equal(streamed.keys.cpu(), ref.keys)
+    assert torch.equal(streamed.values.cpu(), ref.values)
     assert torch.equal(streamed.level_evict.cpu(), ref.level_evict)

@@ -15,7 +15,13 @@ points a user calls:
                  ``kernels.ops.compress_grad``, a 2-level sum cascade and
                  ``compressor.decompress_sum``;
   stream         ``run_cascade_stream`` over 59-record packets, the FPE
-                 kernel resumed from the resident table on every ingest.
+                 kernel resumed from the resident table on every ingest;
+  sim            the packet simulator (``net.simulate``): (a) a small job
+                 on both engines on the card and on the CPU, bit for bit,
+                 and a two-job batch; (b) the paper's word count at full
+                 size through ``jct_comparison``, one multi-table FPE
+                 launch per aggregating tier; (c) a 512-mapper tree at 1%
+                 loss, delivered exactly once.
 
 Each phase prints one JSON line; any mismatch raises (non-zero exit, no
 result line).  The kernel launch counters are set to 0 just before each
@@ -48,7 +54,9 @@ from repro_torch.core import reduction_model as rm  # noqa: E402
 from repro_torch.core.dataplane import CascadePlan, LevelSpec  # noqa: E402
 from repro_torch.kernels import _build, kv_aggregate, ops  # noqa: E402
 from repro_torch.kernels import segment_sum, topk_compress  # noqa: E402
-from repro_torch.net import wire  # noqa: E402
+from repro_torch.net import sim as netsim  # noqa: E402
+from repro_torch.net import simulate, vsim, wire  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 
 EMPTY = kvagg.EMPTY_KEY
 #: H100 SXM data sheet: HBM3 bandwidth, f32 rate outside the tensor cores
@@ -74,12 +82,16 @@ def emit(phase: str, **fields) -> None:
 
 def counted(fn):
     """Run ``fn`` with every launch counter set to 0; return its result
-    and the launches it made."""
+    and the launches it made (``fpe_scan_tables``: the FPE kernel's
+    multi-table launches, counted among ``fpe_aggregate``'s too)."""
     for mod in KERNELS.values():
         mod.launches = 0
+    kv_aggregate.table_launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: mod.launches for name, mod in KERNELS.items()}
+    used = {name: mod.launches for name, mod in KERNELS.items()}
+    used["fpe_scan_tables"] = kv_aggregate.table_launches
+    return out, used
 
 
 def cuda_ms(fn, iters: int = 10, warmup: bool = True) -> float:
@@ -355,6 +367,11 @@ def phase_topk_kernel_vs_plain(seed: int) -> dict:
     special[2, :] = -3.0  # all magnitudes equal
     special[3, :] = float("nan")
     special[4, 10::40] = float("inf")
+    # denormal magnitudes rank as 0 (XLA flushes them), ties in column
+    # order after the row's normal values; the values keep their bits
+    special[5, :] = torch.randint(-3, 4, (4096,), generator=g,
+                                  device="cuda") * 1e-40
+    special[5, [9, 700]] = torch.tensor([0.5, -7.0], device="cuda")
     cases = [
         ("gradient", torch.randn((6144, 4096), generator=g, device="cuda"),
          41),
@@ -661,6 +678,276 @@ def phase_stream(seed: int, launches: dict) -> None:
          wall_ms=wall, pairs_per_s=n / (wall / 1e3), launches=used)
 
 
+# ---------------------------------------------------------------------------
+# 7. the packet simulator
+# ---------------------------------------------------------------------------
+
+SIM_OPS = ("sum", "max", "logsumexp")
+
+
+def _sim_identical(label: str, want, got) -> None:
+    """Every observable of two sim runs equal, as the parity tests hold
+    them (``tests/test_torch_sim.py``)."""
+    check(got.report() == want.report(), f"{label}: report differs")
+    check(got.delivered_table() == want.delivered_table(),
+          f"{label}: delivered table differs")
+    check(got.jct_s == want.jct_s, f"{label}: JCT differs")
+    check(got.mapper_finish_s == want.mapper_finish_s,
+          f"{label}: mapper finish times differ")
+    check(got.retransmissions == want.retransmissions
+          and got.packets_dropped == want.packets_dropped,
+          f"{label}: retransmissions or drops differ")
+
+
+def _levels_plan(capacity: int, n_levels: int, op: str = "sum"):
+    spec = LevelSpec(capacity=capacity, ways=4, bpe=True)
+    return CascadePlan(op=op, levels=(spec,) * n_levels)
+
+
+def _equals_bincount(res, keys: np.ndarray, variety: int) -> bool:
+    want = np.bincount(keys, minlength=variety).astype(np.float32)
+    got = np.zeros((variety,), np.float32)
+    got[res.delivered_keys] = res.delivered_values
+    return (res.delivered_records == int((want > 0).sum())
+            and np.array_equal(got, want))
+
+
+def sim_parity(seed: int) -> dict:
+    """(a) One small job, every op of ``SIM_OPS`` in both stream modes at
+    loss 0 and 1%: both engines on the card equal the vectorized engine
+    on the CPU (the kernels' plain versions); then a two-job batch equals
+    its solo runs, one ``tier_ingest`` call and one multi-table launch a
+    tier."""
+    mappers, per, variety = 8, 4096, 1 << 16
+    n = mappers * per
+    keys = rm.zipf_keys(n, variety, skew=0.99, seed=seed + 3).astype(np.int32)
+    vals = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    t0 = time.perf_counter()
+    configs = 0
+    retx = 0
+    for op in SIM_OPS:
+        for exact in (True, False):
+            for loss in (0.0, 0.01):
+                cfg = netsim.NetConfig(exact_stream=exact, loss_rate=loss,
+                                       seed=seed)
+                spec = netsim.JobSpec(keys=keys, values=vals, fanins=(4, 2),
+                                      plan=_levels_plan(1024, 2, op), cfg=cfg)
+                label = f"sim {op} exact_stream={exact} loss={loss}"
+                want = simulate(spec, engine="vectorized", device="cpu")
+                for engine in ("vectorized", "node"):
+                    got = simulate(spec, engine=engine, device="cuda")
+                    _sim_identical(f"{label} {engine} engine on the card",
+                                   want, got)
+                check(loss == 0.0 or want.retransmissions > 0,
+                      f"{label}: no retransmission at 1% loss")
+                retx += want.retransmissions
+                configs += 1
+    cfg = netsim.NetConfig(seed=seed, engine="vectorized")
+    specs = [netsim.JobSpec(
+        keys=rm.zipf_keys(n, variety, skew=0.99, seed=seed + 3 + j)
+        .astype(np.int32), values=vals, fanins=(4, 2),
+        plan=_levels_plan(1024, 2), cfg=cfg, job_id=j) for j in range(2)]
+    solo = [simulate(sp, device="cuda") for sp in specs]
+    calls = vsim.ingest_calls
+    batch, used = counted(lambda: simulate(specs, device="cuda"))
+    calls = vsim.ingest_calls - calls
+    check(calls == 2 and used["fpe_scan_tables"] == 2,
+          f"the two-job batch made {calls} tier_ingest calls and "
+          f"{used['fpe_scan_tables']} multi-table launches, not 2 and 2")
+    for j, (a, b) in enumerate(zip(solo, batch)):
+        _sim_identical(f"sim batch job {j} vs its solo run", a, b)
+    return {"pairs": n, "mappers": mappers, "key_variety": variety,
+            "fanins": [4, 2], "capacity": 1024, "ops": list(SIM_OPS),
+            "configs": configs, "runs": 3 * configs,
+            "compared": "node and vectorized engines on the card vs the "
+                        "vectorized engine on the CPU, bit for bit",
+            "retransmissions": retx, "batch_jobs": len(specs),
+            "batch_tier_ingest_calls": calls, "seconds":
+            time.perf_counter() - t0}
+
+
+def _spans(tracer, name: str) -> list:
+    return [e for e in tracer.events if e["name"] == name]
+
+
+def leg_wall_ms(tracer, tag: str) -> float:
+    """A job's wall time inside a lockstep batch, from the engine's own
+    spans: its host steps plus the dispatches that carried only its
+    tiers."""
+    us = sum(e["dur"] for e in tracer.events
+             if e["name"] in ("sim.start_tier", "sim.finish_tier")
+             and e["args"]["job"] == tag)
+    us += sum(e["dur"] for e in _spans(tracer, "sim.dispatch")
+              if e["args"]["jobs"] == [tag])
+    return us / 1e3
+
+
+def sim_wordcount(seed: int, launches: dict) -> dict:
+    """(b) The paper's word count at full size through ``jct_comparison``
+    on the vectorized engine: 8 mappers x 1 M Zipf-0.99 pairs over 1 M
+    keys (the ``wordcount`` phase's data), 16,384 pairs a switch at both
+    levels, 10 GbE links.  The run is traced: each tier's FPE launch and
+    combine times, its longest (switch, bucket) run and each leg's wall
+    time are read from the engine's spans, and the level-0 batch it fed
+    the kernel is kept for :func:`fpe_tables_kernel`."""
+    mappers, per, variety = 8, 1 << 20, 1 << 20
+    n = mappers * per
+    keys = rm.zipf_keys(n, variety, skew=0.99, seed=seed).astype(np.int32)
+    vals = np.ones((n,), np.float32)
+    plan = _levels_plan(16384, 2)
+    cfg = netsim.NetConfig(link_gbps=(netsim.TEN_GBE,) * 2,
+                           reducer_gbps=netsim.TEN_GBE, engine="vectorized")
+    batches = []
+    ingest = vsim.tier_ingest
+
+    def keep_batch(keys_b, values_b, **kw):
+        batches.append((keys_b, values_b, kw))
+        return ingest(keys_b, values_b, **kw)
+
+    vsim.tier_ingest = keep_batch
+    try:
+        with obs_trace.scoped_tracer() as tracer:
+            t0 = time.perf_counter()
+            out, used = counted(lambda: netsim.jct_comparison(
+                keys, vals, fanins=(4, 2), plan=plan, cfg=cfg,
+                device="cuda"))
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        vsim.tier_ingest = ingest
+    check(used["fpe_scan_tables"] == 2 and used["fpe_aggregate"] == 2
+          and len(batches) == 2,
+          f"word-count sim launches {used}, {len(batches)} tier_ingest "
+          "calls: not one FPE launch per tier")
+    for name, c in used.items():
+        launches[name] += c
+    sw, host = out["_results"]
+    check(_equals_bincount(sw, keys, variety),
+          "sim word count (SwitchAgg) differs from bincount")
+    check(_equals_bincount(host, keys, variety),
+          "sim word count (host only) differs from bincount")
+    check(out["jct_saved"] > 0.0, f"no JCT saved: {out['jct_saved']}")
+    rep = out["switchagg"]
+    tiers = [e["args"] | {"wall_ms": e["dur"] / 1e3}
+             for e in _spans(tracer, "vsim.tier_ingest")]
+    check([t["levels"] for t in tiers] == [[0], [1]],
+          f"traced tier_ingest calls {[t['levels'] for t in tiers]}")
+    for t, lv in zip(tiers, rep["per_level"]):
+        check(t["real_pairs"] == lv["records_in"],
+              f"level {lv['level']}: the traced batch holds "
+              f"{t['real_pairs']} pairs, the report {lv['records_in']}")
+    emit("sim_wordcount", pairs=n, mappers=mappers, key_variety=variety,
+         skew=0.99, fanins=[4, 2], capacity=16384,
+         link_gbps=netsim.TEN_GBE, wall_ms=wall,
+         leg_wall_ms={leg: leg_wall_ms(tracer, leg)
+                      for leg in ("switchagg", "host_only")},
+         tiers=tiers, jct_switchagg_s=out["jct_switchagg_s"],
+         jct_host_only_s=out["jct_host_only_s"], jct_saved=out["jct_saved"],
+         reduction=out["reduction"],
+         per_level=[{k: lv[k] for k in ("level", "records_in", "records_out",
+                                        "evictions")}
+                    | {"reduction": 1.0 - lv["records_out"]
+                       / max(1, lv["records_in"])}
+                    for lv in rep["per_level"]],
+         delivered_equals_bincount=True, launches=used)
+    return fpe_tables_kernel(batches[0], tiers[0])
+
+
+def fpe_tables_kernel(batch, tier0: dict) -> dict:
+    """The multi-table FPE launch on the batch the word count's level 0
+    fed it (both switches' tables in one launch): timed; held bit for bit
+    against one single-table launch a switch (the kernel path the
+    ``fpe_kernel_vs_plain`` phase holds against the plain scan) over the
+    whole batch, and against the plain version on each switch's first
+    512 packets."""
+    keys_b, values_b, kw = batch
+    s_n, p_n, r = keys_b.shape
+    k = keys_b.reshape(s_n, p_n * r).contiguous()
+    v = values_b.reshape(s_n, p_n * r, 1).contiguous()
+    ways, nb, _ = kvagg._fpe_geometry(kw["capacity"], kw["ways"])
+    n = k.shape[1]
+
+    def scan(ks, vs):
+        return kv_aggregate.fpe_scan_tables(ks, vs, n_buckets=nb, ways=ways,
+                                            op="sum")
+
+    kernel = cuda_ms(lambda: scan(k, v), iters=3)
+    got = scan(k, v)
+    rows = [kv_aggregate.fpe_scan(k[s], v[s], n_buckets=nb, ways=ways,
+                                  op="sum") for s in range(s_n)]
+    torch.cuda.synchronize()
+    _fpe_compare(f"fpe_scan_tables, word-count level 0, all {n} slots of "
+                 f"{s_n} switches vs one launch a switch", got,
+                 tuple(torch.stack(parts).cpu() for parts in zip(*rows)))
+    m = 512 * r
+    ks, vs = k[:, :m].contiguous(), v[:, :m].contiguous()
+    kc, vc = ks.cpu(), vs.cpu()
+    t0 = time.perf_counter()
+    want = scan(kc, vc)
+    plain = (time.perf_counter() - t0) * 1e3
+    got = scan(ks, vs)
+    torch.cuda.synchronize()
+    err = _fpe_compare(f"fpe_scan_tables, word-count level 0, first {m} "
+                       "slots of each switch vs the plain version", got, want)
+    slice_ms = cuda_ms(lambda: scan(ks, vs), iters=5)
+    # each slot's key and value read, its eviction slot and the tables
+    # written; one combine a real pair
+    b_ms, b_by = bound(s_n * n * 8 * 2 + s_n * nb * ways * 8,
+                       tier0["real_pairs"])
+    return {"ms": kernel, "plain_ms": plain, "library_ms": None,
+            "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "chain_pairs": tier0["chain_pairs"],
+            "shape": f"word-count level 0: {s_n} tables of 16384 pairs "
+                     f"(4 ways), {n} slots each, f32",
+            "checked": "whole batch bit for bit against one launch a "
+                       f"switch; first {m} slots of each against the plain "
+                       "version",
+            "plain_shape": f"first {m} slots of each table (CPU)",
+            "ms_slice": slice_ms, "plain_runs_on": "cpu"}
+
+
+def sim_wide(seed: int, launches: dict) -> dict:
+    """(c) A wide tree at 1% loss: fanins (16, 8, 4), 512 mappers, 32
+    level-0 switches in one launch, 16,384 pairs a switch at every level;
+    the delivered table must equal bincount (exactly once under loss)."""
+    fanins, variety, per_mapper = (16, 8, 4), 1 << 20, 16384
+    n = 512 * per_mapper
+    keys = rm.zipf_keys(n, variety, skew=0.99, seed=seed + 5).astype(np.int32)
+    vals = np.ones((n,), np.float32)
+    spec = netsim.JobSpec(keys=keys, values=vals, fanins=fanins,
+                          plan=_levels_plan(16384, 3),
+                          cfg=netsim.NetConfig(loss_rate=0.01, seed=seed,
+                                               engine="vectorized"))
+    t0 = time.perf_counter()
+    res, used = counted(lambda: simulate(spec, device="cuda"))
+    wall = (time.perf_counter() - t0) * 1e3
+    check(used["fpe_scan_tables"] == 3 and used["fpe_aggregate"] == 3,
+          f"wide-tree sim launches {used}: not one FPE launch per tier")
+    for name, c in used.items():
+        launches[name] += c
+    check(_equals_bincount(res, keys, variety),
+          "wide-tree sim at 1% loss differs from bincount")
+    check(res.retransmissions > 0 and res.duplicate_discards == 0,
+          f"retransmissions {res.retransmissions}, duplicates "
+          f"{res.duplicate_discards}")
+    return {"pairs": n, "mappers": 512, "pairs_per_mapper": per_mapper,
+            "fanins": list(fanins), "capacity": 16384, "loss_rate": 0.01,
+            "level0_switches": 32, "retransmissions": res.retransmissions,
+            "packets_dropped": res.packets_dropped, "timeouts": res.timeouts,
+            "gap_discards": res.gap_discards, "jct_s": res.jct_s,
+            "delivered_equals_bincount": True, "wall_ms": wall,
+            "launches": used}
+
+
+def phase_sim(seed: int, launches: dict) -> dict:
+    t0 = time.perf_counter()
+    parity = sim_parity(seed)
+    emit("sim_parity", **parity)
+    kernel = sim_wordcount(seed, launches)
+    emit("sim_wide", **sim_wide(seed, launches))
+    emit("sim", seconds=time.perf_counter() - t0)
+    return kernel
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -676,10 +963,11 @@ def main() -> None:
     finally:
         build.join()  # no nvcc outlives the script, whatever failed
     topk = phase_topk_kernel_vs_plain(args.seed)
-    launches = {name: 0 for name in KERNELS}
+    launches = {name: 0 for name in KERNELS} | {"fpe_scan_tables": 0}
     fpe, bpe = phase_wordcount(args.seed, launches)
     phase_grad_exchange(args.seed, launches)
     phase_stream(args.seed, launches)
+    tables = phase_sim(args.seed, launches)
     for name, c in launches.items():
         check(c > 0, f"the main path never launched {name}")
 
@@ -698,8 +986,13 @@ def main() -> None:
                source="src/repro_torch/kernels/csrc/segment_sum.cu",
                replaces="src/repro/core/kvagg.py:209",
                launches=launches["segment_sum"])
+    # the same CUDA kernel, launched over every switch table of a tier
+    tables.update(name="fpe_scan_tables", route="cuda",
+                  source="src/repro_torch/kernels/csrc/fpe_aggregate.cu",
+                  replaces="src/repro/kernels/kv_aggregate.py:62",
+                  launches=launches["fpe_scan_tables"])
     print(info["nvidia_smi"], flush=True)
-    print(json.dumps({"kernels": [fpe, topk, bpe]}), flush=True)
+    print(json.dumps({"kernels": [fpe, topk, bpe, tables]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
         flush=True)

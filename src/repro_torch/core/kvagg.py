@@ -363,6 +363,72 @@ def sorted_combine(keys: torch.Tensor, values: torch.Tensor, *,
     return CombineResult(uk, cv, n_unique)
 
 
+_KEY_BIAS = 2**31  # int32 key -> [0, 2**32), order kept
+_PAD_COMPOSITE = 2**63 - 1  # sorts after every (packet, key) composite
+
+
+def sorted_combine_packets(keys: torch.Tensor, values: torch.Tensor, *,
+                           op: str = "sum") -> CombineResult:
+    """:func:`sorted_combine` of every packet of a batch at once: keys
+    [G, R], values [G, R, *lanes] -> unique_keys [G, R], combined_values
+    [G, R, *lanes], n_unique [G].  Row g is exactly what
+    ``sorted_combine(keys[g], values[g])`` returns: the packet's unique
+    keys ascending in its first slots, EMPTY_KEY and the op's identity
+    after them.
+
+    One stable sort of the (packet, key) composites, then one segment
+    reduce over the whole batch (the in-order segment-sum kernel on a
+    card for sum/count/mean), then one scatter of the unique keys to
+    their packets' slots (one synchronisation, for their count).  The sort is stable, so each key of each
+    packet still combines its values in ascending slot order, as the
+    per-packet combine does.  :func:`sorted_combine_packets_plain` is the
+    loop over packets it must equal bit for bit.
+    """
+    aggop = aggops.get(op)
+    g_n, r = keys.shape
+    n = g_n * r
+    dev = keys.device
+    lane_shape = tuple(values.shape[2:])
+    flat_k = keys.reshape(n)
+    flat_v = values.reshape((n,) + lane_shape)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    packet = pos // max(r, 1)
+    comp = torch.where(flat_k != EMPTY_KEY,
+                       (packet << 32) + (flat_k.to(torch.int64) + _KEY_BIAS),
+                       _PAD_COMPOSITE)
+    c_s, perm = torch.sort(comp, stable=True)
+    real = c_s != _PAD_COMPOSITE
+    first = torch.searchsorted(c_s, c_s)
+    start = (first == pos) & real
+    seg = torch.where(real, first, -1)
+    comb = aggop.segment_reduce(flat_v.index_select(0, perm), seg, n,
+                                ids_grouped=True)
+    # the unique keys in (packet, key) order; each one's slot is its rank
+    # among its packet's unique keys
+    u = start.nonzero().squeeze(1)
+    c_u = c_s.index_select(0, u)
+    g_u = c_u >> 32
+    n_unique = torch.bincount(g_u, minlength=g_n)
+    before = torch.cumsum(n_unique, 0) - n_unique  # uniques of lower packets
+    slot = g_u * r + torch.arange(u.shape[0], device=dev) - before[g_u]
+    uk = torch.full((n,), EMPTY_KEY, dtype=torch.int32, device=dev)
+    uk[slot] = ((c_u & 0xFFFFFFFF) - _KEY_BIAS).to(torch.int32)
+    cv = aggop.identity(values.dtype, dev).expand((n,) + lane_shape).clone()
+    cv[slot] = comb.index_select(0, u)
+    return CombineResult(uk.reshape(g_n, r),
+                         cv.reshape((g_n, r) + lane_shape),
+                         n_unique.to(torch.int32))
+
+
+def sorted_combine_packets_plain(keys: torch.Tensor, values: torch.Tensor,
+                                 *, op: str = "sum") -> CombineResult:
+    """The loop over packets that :func:`sorted_combine_packets` equals:
+    one :func:`sorted_combine` per row."""
+    outs = [sorted_combine(keys[g], values[g], op=op)
+            for g in range(keys.shape[0])]
+    return CombineResult(*(torch.stack(parts) for parts in zip(*outs)))
+
+
 class TwoLevelResult(NamedTuple):
     """Full SwitchAgg node output: FPE flush + BPE combine, plus traffic
     stats.  ``out_keys`` is a traffic stream, not a key set: ``n_out``

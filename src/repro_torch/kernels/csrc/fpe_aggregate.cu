@@ -43,6 +43,15 @@
 //              ingest) is one launch with no partition: each block loads
 //              the whole stream into shared memory with its buckets, and
 //              each worker picks out its own bucket's pairs in order.
+//   tables     S independent tables in one launch (every switch of a
+//              simulated tier, `fpe_scan_tables`): table s owns the
+//              stream slice [s*per, (s+1)*per) and the buckets
+//              [s*n_buckets, (s+1)*n_buckets), so the S tables side by
+//              side are one table of S*n_buckets buckets whose bucket id
+//              is s*n_buckets + hash(k).  Only the bucket kernel adds the
+//              offset; the walk reads starts[b] and the row at b*ways and
+//              never rehashes, so it runs unchanged.  The one-launch path
+//              hashes without the offset, so S > 1 always partitions.
 //
 // What bounds it on this card: the longest bucket chain.  A bucket's pairs
 // are a dependent chain of row updates (a few tens of cycles each for a
@@ -508,12 +517,17 @@ fpe_warp_kernel(const Args<T> a) {
 // partition helpers
 // ---------------------------------------------------------------------------
 
+// bkt[i] = the bucket of keys[i] in table i / per (its buckets start at
+// (i / per) * n_buckets), or pad_bucket for an EMPTY_KEY pad.
 __global__ void fpe_bucket_kernel(const int32_t* __restrict__ keys, int n,
-                                  int n_buckets, int32_t* __restrict__ bkt) {
+                                  int per, int n_buckets, int pad_bucket,
+                                  int32_t* __restrict__ bkt) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int32_t k = keys[i];
-  bkt[i] = k == kEmpty ? n_buckets : (int32_t)fpe_hash(k, n_buckets);
+  bkt[i] = k == kEmpty ? pad_bucket
+                       : (i / per) * n_buckets +
+                             (int32_t)fpe_hash(k, (uint32_t)n_buckets);
 }
 
 template <typename T>
@@ -610,15 +624,20 @@ int run(int op, const void* keys, const void* vals, int n, int lanes,
 
 extern "C" {
 
-// bkt[i] = the bucket of keys[i], or n_buckets for an EMPTY_KEY pad.
-int fpe_bucket_launch(const void* keys, int n, int n_buckets, void* bkt,
-                      void* stream) {
+// The buckets of S = n / per tables side by side: bkt[i] = (i / per) *
+// n_buckets + the bucket of keys[i], or S * n_buckets (past the last
+// bucket) for an EMPTY_KEY pad.  One table: per = n.
+int fpe_bucket_launch(const void* keys, int n, int per, int n_buckets,
+                      void* bkt, void* stream) {
   if (n < 0 || n_buckets < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
+  if (per < 1 || n % per != 0 ||
+      (long long)(n / per) * n_buckets > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   fpe_bucket_kernel<<<(n + 255) / 256, 256, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), n, n_buckets,
-      static_cast<int32_t*>(bkt));
+      static_cast<const int32_t*>(keys), n, per, n_buckets,
+      (n / per) * n_buckets, static_cast<int32_t*>(bkt));
   return (int)cudaGetLastError();
 }
 

@@ -5,12 +5,15 @@
 // What it computes, per row of x [rows, cols]: the k columns of largest
 // |x| in descending order, ties to the lower column, NaN ranking above
 // +inf (as jnp.argmax and a stable descending torch.sort rank it), -0.0
-// equal to 0; the signed values in x's dtype and the int32 columns.
+// equal to 0, a denormal magnitude equal to 0 (XLA flushes denormals, so
+// the JAX package ranks them so); the signed values in x's dtype, bits
+// kept, and the int32 columns.
 //
 // Design: a radix select, one block of 256 threads per row.
 //   keys       the row is read once from device memory and each |x| is
 //              stored in shared memory as its uint32 bit pattern, which
-//              orders non-negative floats; every NaN becomes 0xffffffff.
+//              orders non-negative floats; every NaN becomes 0xffffffff,
+//              every denormal 0.
 //   threshold  the k-th largest key, found by four passes of 8-bit digit
 //              histograms (most significant first) in shared memory.  A
 //              warp adds each digit once with __match_any_sync, so a hot
@@ -48,6 +51,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kNaNKey = 0xffffffffu;
+constexpr uint32_t kFltMinBits = 0x00800000u;  // smallest normal f32
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -56,11 +60,12 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// |v| as an ordered uint32 key: the bits of |v|, NaN above +inf
+// |v| as an ordered uint32 key: the bits of |v|, NaN above +inf, a
+// denormal 0
 template <typename T>
 __device__ __forceinline__ uint32_t mag_key(T v) {
   const uint32_t u = __float_as_uint(to_f32(v)) & 0x7fffffffu;
-  return u > 0x7f800000u ? kNaNKey : u;
+  return u > 0x7f800000u ? kNaNKey : (u < kFltMinBits ? 0u : u);
 }
 
 // Bitonic sort of c[0, p) descending, p a power of two; `stride_t`

@@ -9,6 +9,9 @@ bucket) and each bucket's run is walked by one thread (its row in
 registers) or, for rows of more than 4 ways, one warp.  What bounds it is
 the longest bucket chain, not bandwidth.  A stream of at most
 ``SMALL_N`` pairs is one launch that partitions in shared memory.
+:func:`fpe_scan_tables` runs S independent tables (every switch of a
+simulated tier) in one launch: the S tables side by side are one table
+of ``S * n_buckets`` buckets, table s owning stream slice s.
 
 Semantics are bit-identical to the sequential scan ``core.kvagg._fpe_scan``
 whose plain form, :func:`fpe_scan_plain`, is the Python loop in
@@ -18,7 +21,8 @@ algorithm, on no path: the tests hold it against the scan.
 
 Dispatch rule (no fallbacks): a CPU tensor takes the plain scan; a CUDA
 tensor launches the kernel or raises.  ``launches`` counts kernel
-launches and nothing else.
+launches and nothing else; ``table_launches`` counts those made by
+:func:`fpe_scan_tables`.
 
 ``exact_stream=False`` in :func:`fpe_aggregate_cuda` keeps the Pallas
 wrapper's fast-mode contract (DESIGN.md §8): the stream is pre-combined
@@ -53,6 +57,8 @@ SMALL_N = 4096
 
 #: kernel launches in this process (set to 0 to start a count)
 launches = 0
+#: of those, the multi-table launches of :func:`fpe_scan_tables`
+table_launches = 0
 
 fpe_scan_plain = _kvagg._fpe_scan_plain
 
@@ -65,25 +71,33 @@ def _lib() -> ctypes.CDLL:
                                              p, p, p, p, p, p,
                                              p, p, p, p, p]
         lib.fpe_aggregate_launch.restype = i
-        lib.fpe_bucket_launch.argtypes = [p, i, i, p, p]
+        lib.fpe_bucket_launch.argtypes = [p, i, i, i, p, p]
         lib.fpe_bucket_launch.restype = i
     return lib
 
 
 def fpe_scan_partitioned_plain(keys, values, *, n_buckets: int, ways: int,
-                               op: str, table_keys=None, table_values=None):
+                               op: str, table_keys=None, table_values=None,
+                               n_tables: int = 1):
     """Plain model of the kernel's algorithm (CPU tensors; tests only).
 
-    Partition: each pair's bucket (pads to ``n_buckets``), a stable sort,
+    Partition: each pair's bucket (pads past the last), a stable sort,
     each bucket's run.  Walk: each bucket's row from the resume table (or
     empty), its run applied in order, each eviction written at the pair's
     own stream index, the row written once.  Returns what
-    :func:`fpe_scan_plain` returns, and must equal it bit for bit.
+    :func:`fpe_scan_plain` returns, and must equal it bit for bit.  With
+    ``n_tables`` tables side by side (the multi-table launch), table s
+    owns stream slice s and the buckets from ``s * n_buckets``, and the
+    result equals one :func:`fpe_scan_plain` per table.
     """
     combine = aggops.get(op).combine
     n, lanes = values.shape
+    table = torch.arange(n) // max(1, n // n_tables)
+    n_buckets_per = n_buckets
+    n_buckets = n_tables * n_buckets
     bkt = torch.where(keys == EMPTY_KEY, n_buckets,
-                      aggops.hash_key(keys, n_buckets))
+                      table * n_buckets_per
+                      + aggops.hash_key(keys, n_buckets_per))
     perm = torch.sort(bkt, stable=True).indices
     starts = torch.searchsorted(bkt[perm], torch.arange(n_buckets + 1,
                                                         dtype=bkt.dtype))
@@ -125,27 +139,32 @@ def _check(t: torch.Tensor, name: str, dev, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def partition(keys: torch.Tensor, n_buckets: int):
+def partition(keys: torch.Tensor, n_buckets: int, n_tables: int = 1):
     """The kernel's partition of a stream on the card: (perm [n] int64,
     the stream indices ordered by bucket with stream order kept within a
-    bucket; starts [n_buckets + 1] int64, each bucket's run in perm).
-    Pads go to bucket ``n_buckets``, past the last run."""
+    bucket; starts [n_tables * n_buckets + 1] int64, each bucket's run in
+    perm).  With ``n_tables`` tables, table s owns the stream slice
+    [s * n / n_tables, (s + 1) * n / n_tables) and the buckets from
+    ``s * n_buckets``.  Pads go past the last run."""
     n = keys.shape[0]
+    total = n_tables * n_buckets
     bkt = torch.empty((n,), dtype=torch.int32, device=keys.device)
     with _build.on_device(keys.device):
         rc = _lib().fpe_bucket_launch(
-            keys.data_ptr(), n, n_buckets, bkt.data_ptr(),
+            keys.data_ptr(), n, n // n_tables, n_buckets, bkt.data_ptr(),
             torch.cuda.current_stream(keys.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"FPE bucket launch failed: cudaError {rc}")
     sb, perm = torch.sort(bkt, stable=True)
     starts = torch.searchsorted(
-        sb, torch.arange(n_buckets + 1, dtype=torch.int32,
-                         device=keys.device))
+        sb, torch.arange(total + 1, dtype=torch.int32, device=keys.device))
     return perm, starts
 
 
-def _launch(keys, values, *, n_buckets, ways, op, table_keys, table_values):
+def _launch(keys, values, *, n_buckets, ways, op, table_keys, table_values,
+            n_tables=1):
+    """One kernel launch over ``n_tables`` tables side by side: keys [n],
+    values [n, lanes], table [n_tables * cap] (see :func:`partition`)."""
     global launches
     dev = keys.device
     if dev.type != "cuda":
@@ -162,7 +181,10 @@ def _launch(keys, values, *, n_buckets, ways, op, table_keys, table_values):
         raise ValueError(f"op {op!r} has no FPE kernel")
     if op == "logsumexp" and not values.dtype.is_floating_point:
         raise ValueError("logsumexp needs floating values")
-    cap = n_buckets * ways
+    if n >= 2**31 or n % n_tables:
+        raise ValueError(f"{n} pairs do not split into {n_tables} tables "
+                         "of a stream the kernel can index (int32)")
+    cap = n_tables * n_buckets * ways
     _check(keys, "keys", dev, torch.int32, (n,))
     _check(values, "values", dev, values.dtype, (n, lanes))
     if (table_keys is None) != (table_values is None):
@@ -178,14 +200,16 @@ def _launch(keys, values, *, n_buckets, ways, op, table_keys, table_values):
     with _build.on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         part = (None,) * 4
-        if n > SMALL_N:
-            perm, starts = partition(keys, n_buckets)
+        # the one-launch path hashes without a table offset
+        if n > SMALL_N or n_tables > 1:
+            perm, starts = partition(keys, n_buckets, n_tables)
             run_k = torch.empty_like(keys)
             run_v = torch.empty_like(values)
             part = (perm.data_ptr(), starts.data_ptr(), run_k.data_ptr(),
                     run_v.data_ptr())
         rc = lib.fpe_aggregate_launch(
-            keys.data_ptr(), values.data_ptr(), n, lanes, n_buckets, ways,
+            keys.data_ptr(), values.data_ptr(), n, lanes,
+            n_tables * n_buckets, ways,
             OP_CODES[op], DTYPE_CODES[values.dtype],
             None if table_keys is None else table_keys.data_ptr(),
             None if table_values is None else table_values.data_ptr(),
@@ -211,6 +235,53 @@ def fpe_scan(keys, values, *, n_buckets: int, ways: int, op: str,
                               table_values=table_values)
     return _launch(keys, values, n_buckets=n_buckets, ways=ways, op=op,
                    table_keys=table_keys, table_values=table_values)
+
+
+def fpe_scan_tables_plain(keys, values, *, n_buckets: int, ways: int,
+                          op: str, table_keys=None, table_values=None):
+    """The plain version of :func:`fpe_scan_tables`: one
+    :func:`fpe_scan_plain` per table (CPU tensors)."""
+    outs = [fpe_scan_plain(
+        keys[s], values[s], n_buckets=n_buckets, ways=ways, op=op,
+        table_keys=None if table_keys is None else table_keys[s],
+        table_values=None if table_values is None else table_values[s])
+        for s in range(keys.shape[0])]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def fpe_scan_tables(keys, values, *, n_buckets: int, ways: int, op: str,
+                    table_keys=None, table_values=None):
+    """S independent exact FPE scans in one launch: keys [S, n], values
+    [S, n, lanes], optionally resumed from tables [S, cap] /
+    [S, cap, lanes].  Returns (table_keys [S, cap], table_values
+    [S, cap, lanes], evict_keys [S, n], evict_values [S, n, lanes]); row s
+    is exactly ``fpe_scan(keys[s], values[s], ...)``.
+
+    CPU tensors take :func:`fpe_scan_tables_plain`; CUDA tensors launch
+    the kernel once over the S tables side by side (``S * n_buckets``
+    buckets, partitioned).
+    """
+    if keys.device.type == "cpu":
+        return fpe_scan_tables_plain(keys, values, n_buckets=n_buckets,
+                                     ways=ways, op=op, table_keys=table_keys,
+                                     table_values=table_values)
+    global table_launches
+    if keys.dim() != 2 or values.dim() != 3:
+        raise ValueError("keys must be [S, n] and values [S, n, lanes]")
+    s_n, n = keys.shape
+    lanes = values.shape[2]
+    cap = n_buckets * ways
+    tk, tv, ek, ev = _launch(
+        keys.reshape(s_n * n), values.reshape(s_n * n, lanes),
+        n_buckets=n_buckets, ways=ways, op=op,
+        table_keys=(None if table_keys is None
+                    else table_keys.reshape(s_n * cap)),
+        table_values=(None if table_values is None
+                      else table_values.reshape(s_n * cap, lanes)),
+        n_tables=max(1, s_n))
+    table_launches += 1
+    return (tk.reshape(s_n, cap), tv.reshape(s_n, cap, lanes),
+            ek.reshape(s_n, n), ev.reshape(s_n, n, lanes))
 
 
 def fpe_aggregate_cuda(

@@ -5,7 +5,10 @@ Port of the Pallas TPU kernel ``_topk_kernel`` / ``topk_rows_pallas``
 (``src/repro/kernels/topk_compress.py:29`` and ``:47``).  What it
 computes: per row, the k columns of largest ``|x|`` (in f32), descending,
 ties to the LOWEST column, NaN above +inf; the signed values in
-``x.dtype`` and the int32 column indices.
+``x.dtype`` and the int32 column indices.  A magnitude below the
+smallest normal f32 (a denormal) ranks as 0, as XLA, which flushes
+denormals to zero, ranks it in the JAX package (``kernels.ref.topk_ref``);
+the value returned keeps its bits, as ``topk_ref``'s gather keeps them.
 
 The kernel is ``csrc/topk_rows.cu``: one block per row reads the row
 once, finds the k-th largest magnitude by a radix select over the bit
@@ -37,6 +40,8 @@ launches = 0
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the key of every NaN: above +inf's bit pattern
 NAN_KEY = 0xFFFFFFFF
+#: the bits of the smallest normal f32; a magnitude below it ranks as 0
+FLT_MIN_BITS = 0x00800000
 
 
 def _lib() -> ctypes.CDLL:
@@ -50,19 +55,23 @@ def _lib() -> ctypes.CDLL:
 
 def topk_rows_plain(x: torch.Tensor, k: int):
     """Plain torch top-k by |.| per row: (values [rows, k] in x.dtype,
-    indices [rows, k] int32), descending, ties to the lower index."""
+    indices [rows, k] int32), descending, ties to the lower index,
+    denormal magnitudes ranked as 0."""
     rows, cols = x.shape
     if k > cols:
         raise ValueError(f"k={k} > cols={cols}")
     mag = x.to(torch.float32).abs()
+    mag = torch.where(mag < torch.finfo(torch.float32).tiny, 0.0, mag)
     idx = torch.sort(mag, dim=-1, descending=True, stable=True).indices[:, :k]
     return torch.gather(x, 1, idx), idx.to(torch.int32)
 
 
 def magnitude_keys(x: torch.Tensor) -> torch.Tensor:
     """The kernel's ordering key of each element: the bit pattern of
-    ``|x|`` in f32 as a non-negative int64, every NaN ``NAN_KEY``."""
+    ``|x|`` in f32 as a non-negative int64, every NaN ``NAN_KEY``, every
+    denormal 0."""
     u = x.to(torch.float32).abs().view(torch.int32).to(torch.int64)
+    u = torch.where(u < FLT_MIN_BITS, 0, u)
     return torch.where(u > 0x7F800000, NAN_KEY, u)
 
 

@@ -207,9 +207,9 @@ def test_radix_select_equals_jax_topk_ref(k, dtype):
     """The model of the top-k kernel against the port's plain version and
     ``repro.kernels.ref.topk_ref``, bit for bit; k = 96 is k = cols.
 
-    Row 5 (denormal magnitudes) is held against the plain version only:
-    XLA on the CPU flushes denormals to zero, so ``topk_ref`` sees a row
-    of ties there, while the port ranks them by value on either device.
+    Row 5 (denormal magnitudes): XLA flushes denormals to zero, so
+    ``topk_ref`` ranks the row as ties in column order, and so does the
+    port; both return the values' own bits.
     """
     x = jnp.asarray(_topk_rows()).astype(JD[dtype])
     jv, ji = jref.topk_ref(x, k)
@@ -218,11 +218,15 @@ def test_radix_select_equals_jax_topk_ref(k, dtype):
     pv, pi = topk_compress.topk_rows_plain(xt, k)
     assert torch.equal(mi, pi)
     assert torch.equal(_bits(mv), _bits(pv))
-    rows = [r for r in range(x.shape[0]) if r != 5]
-    np.testing.assert_array_equal(mi[rows].numpy(), np.asarray(ji)[rows])
+    np.testing.assert_array_equal(mi.numpy(), np.asarray(ji))
     # values equal, NaN to NaN (XLA's gather may give a NaN another payload)
-    np.testing.assert_array_equal(mv[rows].float().numpy(),
-                                  np.asarray(jv.astype(jnp.float32))[rows])
+    np.testing.assert_array_equal(mv.float().numpy(),
+                                  np.asarray(jv.astype(jnp.float32)))
+    # the denormal row bit for bit
+    np.testing.assert_array_equal(
+        _bits(mv[5]).numpy(),
+        np.asarray(jv[5]).view(np.int16 if dtype == "bfloat16"
+                               else np.int32))
 
 
 def test_radix_select_keys_order_magnitudes():

@@ -189,3 +189,121 @@ def test_cascade_and_stream_on_card_match_cpu(card):
     assert torch.equal(streamed.keys.cpu(), ref.keys)
     assert torch.equal(streamed.values.cpu(), ref.values)
     assert torch.equal(streamed.level_evict.cpu(), ref.level_evict)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_kernel_ranks_denormals_as_zero(card, dtype):
+    """A row of denormal magnitudes ranks as ties in column order (XLA
+    flushes denormals), after the row's normal values; the values keep
+    their bits."""
+    r = np.random.default_rng(5)
+    x = torch.from_numpy((np.float32(1e-40) * r.integers(-3, 4, (3, 96))
+                          ).astype(np.float32)).to(dtype)
+    x[1, [4, 50]] = torch.tensor([2.0, -3.0], dtype=dtype)
+    x = x.to(card)
+    v, i = topk_compress.topk_rows(x, k=41)
+    pv, pi = topk_compress.topk_rows_plain(x.cpu(), 41)
+    assert topk_compress.launches == 1
+    assert torch.equal(i.cpu(), pi)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(v.cpu().view(bits), pv.view(bits))
+    assert i[0].tolist() == list(range(41))
+    assert i[1, :2].tolist() == [50, 4]
+
+
+@pytest.mark.parametrize("op,dtype", [
+    ("sum", torch.float32), ("sum", torch.bfloat16), ("max", torch.int32),
+    ("count", torch.int32), ("mean", torch.float32),
+    ("logsumexp", torch.float32)])
+@pytest.mark.parametrize("capacity,ways", [(64, 4), (256, 8), (16384, 4)])
+@pytest.mark.parametrize("s_n,n", [(1, 2000), (3, 1000), (32, 1500)])
+def test_fpe_scan_tables_kernel_matches_plain(card, op, dtype, capacity,
+                                              ways, s_n, n):
+    """One launch over S tables (partitioned whenever S > 1, the
+    one-launch path at S = 1 and n <= SMALL_N), resumed, against one
+    plain scan per table."""
+    streams = [_stream(s + capacity, n, 700, op, dtype) for s in range(s_n)]
+    keys = torch.stack([k for k, _ in streams])
+    vals = torch.stack([v for _, v in streams])
+    ways, nb, _ = kvagg._fpe_geometry(capacity, ways)
+    t0 = kv_aggregate.fpe_scan_tables(keys[:, :300], vals[:, :300],
+                                      n_buckets=nb, ways=ways, op=op)
+    want = kv_aggregate.fpe_scan_tables(keys, vals, n_buckets=nb, ways=ways,
+                                        op=op, table_keys=t0[0],
+                                        table_values=t0[1])
+    got = kv_aggregate.fpe_scan_tables(
+        keys.to(card), vals.to(card), n_buckets=nb, ways=ways, op=op,
+        table_keys=t0[0].to(card), table_values=t0[1].to(card))
+    torch.cuda.synchronize()
+    assert kv_aggregate.launches == 1
+    _same(got, want)
+
+
+@pytest.mark.parametrize("op,dtype", [
+    ("sum", torch.float32), ("sum", torch.bfloat16), ("min", torch.int32),
+    ("count", torch.int32), ("mean", torch.float32),
+    ("logsumexp", torch.float32)])
+def test_sorted_combine_packets_on_card_matches_the_loop(card, op, dtype):
+    keys, vals = _stream(9, 59 * 300, 40, op, dtype)
+    keys = keys.reshape(300, 59)
+    keys[7] = EMPTY
+    vals = vals.reshape((300, 59) + tuple(vals.shape[1:]))
+    if op not in ("mean",):
+        vals = vals[..., 0]
+    want = kvagg.sorted_combine_packets_plain(keys, vals, op=op)
+    got = kvagg.sorted_combine_packets(keys.to(card), vals.to(card), op=op)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("exact_stream", [True, False])
+@pytest.mark.parametrize("loss", [0.0, 0.02])
+def test_sim_on_card_matches_cpu(card, exact_stream, loss):
+    """Both engines on the card equal the vectorized engine on the CPU,
+    and the vectorized engine makes one FPE launch per aggregating tier
+    in exact-stream mode."""
+    from repro_torch.net import sim, simulate
+
+    r = np.random.default_rng(3)
+    keys = r.zipf(1.5, 4000).astype(np.int32) % 500
+    vals = r.standard_normal(4000).astype(np.float32)
+    plan = CascadePlan(op="logsumexp", levels=(LevelSpec(capacity=64),
+                                               LevelSpec(capacity=128)))
+    cfg = sim.NetConfig(records_per_packet=59, exact_stream=exact_stream,
+                        loss_rate=loss, seed=4, window=8)
+    spec = sim.JobSpec(keys=keys, values=vals, fanins=(4, 2), plan=plan,
+                       cfg=cfg)
+    want = simulate(spec, engine="vectorized", device="cpu")
+    kv_aggregate.launches = 0
+    vec = simulate(spec, engine="vectorized", device=card)
+    if exact_stream:
+        assert kv_aggregate.launches == 2
+    node = simulate(spec, engine="node", device=card)
+    for got in (vec, node):
+        assert got.report() == want.report()
+        assert got.delivered_table() == want.delivered_table()
+        assert got.jct_s == want.jct_s
+        assert got.mapper_finish_s == want.mapper_finish_s
+
+
+def test_traced_sim_on_card_records_device_times(card):
+    """With the tracer on, each aggregating tier's span carries the device
+    times of its FPE launch and of its combine, and the traced run equals
+    the untraced one."""
+    from repro_torch.net import sim, simulate
+    from repro_torch.obs import trace as obs_trace
+
+    keys = np.random.default_rng(5).zipf(1.5, 4000).astype(np.int32) % 500
+    vals = np.ones((4000,), np.float32)
+    plan = CascadePlan(op="sum", levels=(LevelSpec(capacity=64),) * 2)
+    spec = sim.JobSpec(keys=keys, values=vals, fanins=(4, 2), plan=plan,
+                       cfg=sim.NetConfig(engine="vectorized"))
+    want = simulate(spec, device=card)
+    with obs_trace.scoped_tracer() as tracer:
+        got = simulate(spec, device=card)
+    assert got.report() == want.report()
+    assert got.delivered_table() == want.delivered_table()
+    tiers = [e["args"] for e in tracer.events
+             if e["name"] == "vsim.tier_ingest"]
+    assert [t["levels"] for t in tiers] == [[0], [1]]
+    for t in tiers:
+        assert t["fpe_tables_ms"] > 0.0 and t["combine_ms"] > 0.0
